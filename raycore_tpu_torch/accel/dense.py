@@ -1,0 +1,296 @@
+"""Dense clustered scene: build and exact finalize (counterpart of
+``raycore_tpu/accel/dense.py``, partial: ``DenseScene``, the build,
+``gather_hit_payload`` and ``finalize_hits_exact``).
+
+Build: triangles are sorted spatially and cut into clusters of C
+consecutive triangles. Each triangle is *featurized*: every Möller–Trumbore
+quantity is a bilinear form in ray features and triangle features,
+
+    det   = d · (e2 x e1) = -d · n    n  = e1 x e2
+    u*det = (o x d) · e2  - d · (e2 x v0)
+    v*det = -(o x d) · e1 - d · (v0 x e1)
+    t*det = o · n - v0 · n
+
+so with ray features phi = [d, o x d, o, 1, ...] (16 wide) and a (16, 4C)
+per-cluster triangle matrix, all four quantities for a block of rays
+against one cluster are one small matrix product (ops/regroup.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.triangle import Triangle, cross, dot3, safe_invdir
+from .brute import HitResult
+from .types import PAD_COORD, f32_as_i32, i32_as_f32, next_pow2
+
+FEAT = 16
+
+
+@dataclasses.dataclass
+class DenseScene:
+    """Clustered, featurized triangle soup (world space).
+
+    ``tri_feats`` columns are sub-chunk-major: for each of the SUB
+    sub-chunks of CS = C/SUB consecutive triangles, the four quantity
+    blocks [det | u*det | v*det | t*det] x CS are contiguous."""
+
+    tri_feats: torch.Tensor    # (K, FEAT, 4*C) float32, sub-chunk-major
+    cluster_min: torch.Tensor  # (K, 3)
+    cluster_max: torch.Tensor  # (K, 3)
+    sub_bounds: torch.Tensor   # (K, 1, 128) float32; cols [s*6:(s+1)*6]
+                               # hold sub-chunk s's [min xyz, max xyz]
+    prims: Triangle            # caller's original order, unpadded
+    prims_hot: torch.Tensor    # (K*C, 11) int32, sorted cluster-major:
+                               # [vertex float32 bits (9), metadata,
+                               # original index]
+    root_aabb: torch.Tensor    # (2, 3) over real triangles only
+    n_prims: int
+    cluster_size: int
+    sub_chunks: int = 4
+    payload_mask: int = 0b111
+    # payload_mask bits: 1 = normals nonzero, 2 = tangents nonzero,
+    # 4 = uv nonzero, 8 = flat-shaded (normals are the face normals).
+    instance_of_prim: torch.Tensor | None = None
+    # int32 instance slot per original-order triangle, or None when every
+    # hit reports instance 0.
+
+    @property
+    def n_clusters(self) -> int:
+        return self.tri_feats.shape[0]
+
+
+def pack_prims_hot(tris: Triangle, orig_idx=None) -> torch.Tensor:
+    """(T, 11) int32 hot rows [vertex float32 bits (9), metadata, original
+    index]; ``orig_idx`` defaults to row order."""
+    T = tris.vertices.shape[0]
+    if orig_idx is None:
+        orig_idx = torch.arange(T, dtype=torch.int32, device=tris.device)
+    return torch.cat([
+        f32_as_i32(tris.vertices.reshape(T, 9).contiguous()),
+        tris.metadata.to(torch.int32)[:, None],
+        orig_idx.to(torch.int32)[:, None]], dim=1)
+
+
+def _face_normals(v):
+    """Unit face normal per triangle, normalize(cross(v1-v0, v2-v0)), with a
+    zero-length normal left at 0, in plain float32. The probe and the
+    finalize use this same formula."""
+    fn = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    ln = torch.sqrt((fn * fn).sum(-1))[:, None]
+    return fn / torch.where(ln > 0, ln, 1.0)
+
+
+def gather_hit_payload(scene: DenseScene, idx, hit):
+    """(Triangle, original index) for winning rows: one hot-row gather plus
+    per-field gathers of the cold fields that ``payload_mask`` marks
+    nonzero. ``idx`` is in sorted (table) space; cold fields are looked up
+    by the hot row's original index. Misses get original index -1."""
+    R = idx.shape[0]
+    dev = idx.device
+    rows = scene.prims_hot[idx]                                # (R, 11)
+    rows = torch.where(hit[:, None], rows, 0)
+    meta = torch.where(hit, rows[:, 9].to(torch.int64) & 0xFFFFFFFF, 0)
+    n_cold = scene.prims.vertices.shape[0]
+    orig = torch.where(hit, rows[:, 10], -1)
+    cidx = orig.clamp(0, n_cold - 1)
+
+    def cold(field, ncols, bit):
+        if scene.payload_mask & bit:
+            g = field.reshape(-1, ncols)[cidx]
+            return torch.where(hit[:, None], g, 0.0)
+        return torch.zeros((R, ncols), dtype=torch.float32, device=dev)
+
+    verts = i32_as_f32(rows[:, 0:9].contiguous()).reshape(R, 3, 3)
+    if scene.payload_mask & 8:
+        # Flat-shaded mesh: the face normal is recomputed from the
+        # gathered vertices instead of a second payload gather.
+        fn = torch.where(hit[:, None], _face_normals(verts), 0.0)
+        normals = fn[:, None, :].expand(R, 3, 3)
+    else:
+        normals = cold(scene.prims.normals, 9, 1).reshape(R, 3, 3)
+    tri = Triangle(vertices=verts, normals=normals,
+                   tangents=cold(scene.prims.tangents, 9, 2).reshape(R, 3, 3),
+                   uv=cold(scene.prims.uv, 6, 4).reshape(R, 3, 2),
+                   metadata=meta)
+    return tri, orig
+
+
+def _featurize_tris(v0, v1, v2):
+    """(T, FEAT, 4) per-triangle feature matrix; the quantity columns are
+    [det, u*det, v*det, t*det]. Rows 10-15 stay zero. The products use the
+    reference's fused multiply-add chains (core/triangle.py), so the
+    one-time build gives the reference's tables."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = cross(e1, e2)
+    T = v0.shape[0]
+    psi = torch.zeros((T, FEAT, 4), dtype=torch.float32, device=v0.device)
+    psi[:, 0:3, 0] = -n                      # det = -d . n
+    psi[:, 0:3, 1] = -cross(e2, v0)          # u*det
+    psi[:, 3:6, 1] = e2
+    psi[:, 0:3, 2] = -cross(v0, e1)          # v*det
+    psi[:, 3:6, 2] = -e1
+    psi[:, 6:9, 3] = n                       # t*det = o . n - v0 . n
+    psi[:, 9, 3] = -dot3(v0, n)
+    return psi
+
+
+def ray_features(o, d):
+    """(R, FEAT) ray feature rows: [d, o x d, o, 1, safe_invdir(d), 0...],
+    in plain float32. The triangle feature rows under cols 10:16 are
+    zero."""
+    R = o.shape[0]
+    phi = torch.zeros((R, FEAT), dtype=torch.float32, device=o.device)
+    phi[:, 0:3] = d
+    phi[:, 3:6] = torch.linalg.cross(o, d)
+    phi[:, 6:9] = o
+    phi[:, 9] = 1.0
+    phi[:, 10:13] = safe_invdir(d)
+    return phi
+
+
+def _dense_tables_from_hot(hot, cluster_size: int, sub_chunks: int):
+    """Feature blocks and bounds from sorted int32 hot rows."""
+    T = hot.shape[0]
+    C = cluster_size
+    SUB = sub_chunks
+    CS = C // SUB
+    K = T // C
+    v = i32_as_f32(hot[:, :9].contiguous()).reshape(T, 3, 3)
+    psi = _featurize_tris(v[:, 0], v[:, 1], v[:, 2])          # (T, 16, 4)
+    blocks = psi.reshape(K, SUB, CS, FEAT, 4) \
+        .permute(0, 3, 1, 4, 2).reshape(K, FEAT, 4 * C).contiguous()
+    vk = v.reshape(K, SUB, CS, 3, 3)
+    smin = vk.amin(dim=(2, 3))                                 # (K, SUB, 3)
+    smax = vk.amax(dim=(2, 3))
+    sb = torch.cat([smin, smax], dim=2).reshape(K, SUB * 6)
+    sub_bounds = torch.zeros((K, 1, 128), dtype=torch.float32,
+                             device=hot.device)
+    sub_bounds[:, 0, :SUB * 6] = sb
+    cmin = smin.amin(dim=1)
+    cmax = smax.amax(dim=1)
+    # Root AABB over real triangles only: padding sits at PAD_COORD and
+    # sorts into the tail clusters. Cluster and sub-chunk bounds keep the
+    # sentinel spans.
+    inf = torch.tensor(float("inf"), device=hot.device)
+    tvalid = (v.abs() < PAD_COORD * 0.5).all(dim=2).all(dim=1)   # (T,)
+    vmin = torch.where(tvalid[:, None], v.amin(dim=1), inf)
+    vmax = torch.where(tvalid[:, None], v.amax(dim=1), -inf)
+    root = torch.stack([vmin.amin(0), vmax.amax(0)])
+    return blocks, cmin, cmax, sub_bounds, root
+
+
+def _pack_hot_padded(v, meta, cap: int):
+    """(cap, 11) int32 original-order hot rows with vertex sentinels on
+    the padding."""
+    n = v.shape[0]
+    dev = v.device
+    v9 = torch.cat([v.reshape(n, 9).to(torch.float32),
+                    torch.full((cap - n, 9), PAD_COORD, dtype=torch.float32,
+                               device=dev)])
+    mi = torch.cat([meta.to(torch.int32),
+                    torch.zeros(cap - n, dtype=torch.int32, device=dev)])
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+    return torch.cat([f32_as_i32(v9), mi[:, None], idx[:, None]], dim=1)
+
+
+def _probe_mesh(tris: Triangle):
+    """(lohi ndarray(6), payload_mask int) for a mesh, with one readback.
+
+    Flat-shaded detection: when every stored vertex normal equals the face
+    normal within 1e-6, the winner's normals are recomputed from its
+    gathered vertices at finalize instead of gathered."""
+    v, n = tris.vertices, tris.normals
+    vr = v.reshape(-1, 3)
+    fn = _face_normals(v)[:, None, :]
+    flat = ((n - fn).abs() <= 1e-6).all() & (n != 0).any()
+    flags = torch.stack([(n != 0).any(), (tris.tangents != 0).any(),
+                         (tris.uv != 0).any(), flat]).to(torch.float32)
+    host = torch.cat([vr.amin(0), vr.amax(0), flags]).cpu().numpy()
+    f = host[6:].astype(bool)
+    mask = int(1 * f[0] + 2 * f[1] + 4 * f[2] + 8 * f[3])
+    return host[:6], mask
+
+
+def build_dense(tris: Triangle, cluster_size: int = 256,
+                sub_chunks: int = 1, layout: str = "tiles",
+                instance_of=None) -> DenseScene:
+    """Cluster and featurize a triangle soup on the triangles' device.
+
+    Triangles are sorted spatially, and the capacity is padded to a power
+    of two (at least one cluster) with far-away sentinels. Only the hot
+    rows are permuted; ``prims`` keeps the caller's order and hits report
+    original indices.
+
+    layout="tiles" (default): count-balanced strip/slab/chunk sort, so
+    clusters are compact axis-aligned tiles. layout="morton": Morton-chunk
+    clustering (one sort, fatter clusters).
+
+    instance_of: optional (n,) instance slot per input triangle, looked up
+    by a hit's original index."""
+    from .lbvh import morton_perm_padded, tile_perm_padded, tile_sort_axes
+    if layout not in ("tiles", "morton"):
+        raise ValueError(f"layout must be 'tiles' or 'morton', got {layout}")
+    n = tris.vertices.shape[0]
+    cap = max(next_pow2(n), cluster_size)
+    lohi, payload_mask = _probe_mesh(tris)
+    hot0 = _pack_hot_padded(tris.vertices, tris.metadata, cap)
+    vp = i32_as_f32(hot0[:, :9].contiguous()).reshape(cap, 3, 3)
+    if layout == "tiles":
+        axes, s0, s1 = tile_sort_axes(tris.vertices, cap, cluster_size,
+                                      lohi=lohi)
+        perm = tile_perm_padded(vp, axes=axes, s0=s0, s1=s1)
+    else:
+        perm = morton_perm_padded(vp)
+    hot = hot0[perm]
+    blocks, cmin, cmax, sub_bounds, root = _dense_tables_from_hot(
+        hot, cluster_size, sub_chunks)
+    inst = (None if instance_of is None else
+            torch.as_tensor(instance_of, device=tris.device).to(torch.int32))
+    return DenseScene(tri_feats=blocks, cluster_min=cmin, cluster_max=cmax,
+                      sub_bounds=sub_bounds, prims=tris, prims_hot=hot,
+                      root_aabb=root, n_prims=cap, cluster_size=cluster_size,
+                      sub_chunks=sub_chunks, payload_mask=payload_mask,
+                      instance_of_prim=inst)
+
+
+def _hit_instance_idx(scene: DenseScene, orig, hit):
+    """Owning-instance index of each winning prim: the side array when the
+    scene has one, else instance 0. ``orig`` is the original-order
+    index."""
+    if scene.instance_of_prim is None:
+        return torch.where(hit, 0, -1).to(torch.int32)
+    n = scene.instance_of_prim.shape[0]
+    inst = scene.instance_of_prim[orig.clamp(0, n - 1)]
+    return torch.where(hit, inst, -1).to(torch.int32)
+
+
+def finalize_hits_exact(scene: DenseScene, pair, t_approx, o, d) -> HitResult:
+    """HitResult from winning (pair, t): gather the winning triangle and
+    recompute (t, u, v) with scalar float32 Möller–Trumbore. Winners
+    admitted under the featurized sweep's edge slack clamp into the
+    barycentric simplex."""
+    hit = (pair >= 0) & torch.isfinite(t_approx)
+    tri, orig = gather_hit_payload(scene, pair.clamp_min(0), hit)
+    v0, v1, v2 = tri.vertices[:, 0], tri.vertices[:, 1], tri.vertices[:, 2]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    cross = torch.linalg.cross
+    dot = lambda a, b: (a * b).sum(-1)
+    s1 = cross(d, e2)
+    det = dot(s1, e1)
+    nz = det != 0.0
+    r = torch.where(nz, 1.0 / torch.where(nz, det, 1.0), 0.0)
+    dvec = o - v0
+    u = dot(dvec, s1) * r
+    s2 = cross(dvec, e1)
+    v = dot(d, s2) * r
+    t = torch.where(nz, dot(e2, s2) * r, t_approx)
+    u = u.clamp(0.0, 1.0)
+    v = torch.minimum(v.clamp_min(0.0), 1.0 - u)
+    bary = torch.where(hit[:, None], torch.stack([1 - u - v, u, v], -1), 0.0)
+    return HitResult(hit=hit, triangle=tri, t=torch.where(hit, t, 0.0),
+                     barycentric=bary, prim_idx=orig,
+                     instance_idx=_hit_instance_idx(scene, orig, hit))

@@ -1,0 +1,345 @@
+"""Cluster-major regrouped sweep, the closest-hit main path (counterpart of
+``raycore_tpu/ops/pallas_regroup.py``, partial).
+
+  1. Phase A (ops/dense.py, kernel K1) culls (ray tile, cluster) pairs.
+     Compacting the transposed entry matrix lists the surviving pairs
+     cluster-major.
+  2. Each pair is refined against the tile's TILE/G subgroups of G rays
+     with the same interval test on per-subgroup stats.
+  3. The surviving (subgroup, cluster) pairs stay cluster-major, so blocks
+     of SPB subgroups that need the same cluster pack by rank arithmetic.
+  4. Kernel K2 (``run_regrouped``, ``csrc/regroup_sweep.cu``) tests every
+     block's SPB*G rays against its cluster's C triangles and writes one
+     (t-bits key, prim) per row.
+  5. A grouped segment-min merges each ray's rows (one per candidate
+     cluster), and the exact finalize recomputes the winner's payload.
+
+The block grid is sized exactly from the data (a host sync on the
+compactions and one ``.item()`` on the block count); nothing is sized by
+a capacity guess. Only ``passes=1`` and the compact stage 1 are ported.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..accel.brute import HitResult
+from ..accel.dense import (FEAT, _hit_instance_idx, finalize_hits_exact,
+                           ray_features)
+from ..core.triangle import Triangle, safe_invdir
+from ..kernels import _build
+from .dense import _t_from_keys, build_worklist, compact_indices, \
+    interval_entry, phase_a_entry
+
+INT32_MAX = 0x7FFFFFFF
+
+# Ray-table layout: ray_features cols 0:13 (d, o x d, o, 1, invd) plus
+# t_min in col 13 and t_max in col 14. Triangle feature rows 13/14 are
+# zero, so the extra columns never reach the product.
+COL_TMIN = 13
+COL_TMAX = 14
+EDGE_EPS = 1e-5   # barycentric acceptance slack of the featurized test
+# The plain sweep's product chunk: 2^27 float32 elements (512 MiB).
+PLAIN_CHUNK_ELEMS = 1 << 27
+
+
+def ray_table(o, d, t_min, t_max, G: int):
+    """(n_sub + 1, G, FEAT) per-subgroup ray table; the trailing dummy
+    subgroup (zeros, t_max = -inf) never hits."""
+    R = o.shape[0]
+    phi = ray_features(o, d)
+    phi[:, COL_TMIN] = t_min
+    phi[:, COL_TMAX] = t_max
+    dummy = torch.zeros((1, G, FEAT), dtype=torch.float32, device=o.device)
+    dummy[:, :, COL_TMAX] = -float("inf")
+    return torch.cat([phi.reshape(R // G, G, FEAT), dummy])
+
+
+def subgroup_stats(o, d, t_min, t_max, G: int):
+    """(n_sub, 14) interval stats per G-ray subgroup: cols
+    [o_lo(3) o_hi(3) i_lo(3) i_hi(3) tmin_lo tmax_hi]."""
+    n_sub = o.shape[0] // G
+    invd = safe_invdir(torch.where(d == 0.0, 0.0, d))
+    shp = lambda a: a.reshape((n_sub, G) + tuple(a.shape[1:]))
+    o_t, i_t = shp(o), shp(invd)
+    return torch.cat([o_t.amin(1), o_t.amax(1), i_t.amin(1), i_t.amax(1),
+                      shp(t_min).amin(1)[:, None],
+                      shp(t_max).amax(1)[:, None]], dim=1)
+
+
+def refine_pairs(stats, tids, cids, cluster_min, cluster_max, SPT: int,
+                 n_tiles: int):
+    """Interval-test each (tile, cluster) pair against the tile's SPT
+    subgroups. Returns (P, SPT) conservative entry bounds, +inf where
+    provably no ray of the subgroup enters the cluster."""
+    P = tids.shape[0]
+    st = stats.reshape(n_tiles, SPT * 14)[tids.long()].reshape(P, SPT, 14)
+    return interval_entry(st, cluster_min[cids.long()][:, None],
+                          cluster_max[cids.long()][:, None])
+
+
+def pack_presorted_cluster_major(cid_s, sub_s, *, SPB: int, n_sub: int):
+    """Pack a cluster-contiguous (cid, sub) list into blocks of SPB
+    subgroups by rank arithmetic, no sort: equal cids must be adjacent.
+    Returns (block_cid (B,), block_subs (B, SPB)) int32; slots past a
+    cluster's last subgroup point at the dummy subgroup ``n_sub``."""
+    N = sub_s.shape[0]
+    dev = sub_s.device
+    i = torch.arange(N, dtype=torch.int64, device=dev)
+    boundary = torch.ones(N, dtype=torch.bool, device=dev)
+    boundary[1:] = cid_s[1:] != cid_s[:-1]
+    first = torch.cummax(torch.where(boundary, i, 0), dim=0).values \
+        if N else i
+    rank = i - first
+    slot = rank % SPB
+    block_id = torch.cumsum((slot == 0).to(torch.int64), 0) - 1
+    total = int(block_id[-1].item()) + 1 if N else 0   # the block count
+    block_cid = torch.empty(total, dtype=torch.int32, device=dev)
+    block_cid[block_id] = cid_s.to(torch.int32)   # one value per block
+    block_subs = torch.full((total, SPB), n_sub, dtype=torch.int32,
+                            device=dev)
+    block_subs[block_id, slot] = sub_s.to(torch.int32)
+    return block_cid, block_subs
+
+
+def run_regrouped_plain(block_subs, block_cid, tbl, feats, *, G: int,
+                        SPB: int, C: int):
+    """Sweep every block with a gathered ``torch.bmm`` (full float32: run
+    with TF32 off). Returns (key, pair) of shape (n_blocks*SPB*G,) in
+    block-row order: key is the int32 bits of max(t, 0) of the row's
+    closest accepted triangle (INT32_MAX on a miss), pair is cid*C + lane
+    with the smallest lane on ties (-1 on a miss). Blocks with cid < 0
+    write the miss sentinels. Blocks go through in chunks of at most
+    PLAIN_CHUNK_ELEMS product elements."""
+    ROWS = G * SPB
+    n_blocks = block_cid.shape[0]
+    dev = tbl.device
+    keys = torch.empty(n_blocks * ROWS, dtype=torch.int32, device=dev)
+    pairs = torch.empty(n_blocks * ROWS, dtype=torch.int32, device=dev)
+    step = max(1, PLAIN_CHUNK_ELEMS // (ROWS * 4 * C))
+    lanes = torch.arange(C, dtype=torch.int32, device=dev)
+    imax = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
+    for lo in range(0, n_blocks, step):
+        cid = block_cid[lo:lo + step]
+        n = cid.shape[0]
+        rows = tbl[block_subs[lo:lo + step].long()].reshape(n, ROWS, FEAT)
+        t_min = rows[:, :, COL_TMIN:COL_TMIN + 1]
+        t_max = rows[:, :, COL_TMAX:COL_TMAX + 1]
+        # Zero the t-range carrier columns for the product: their feature
+        # rows are zero, but inf * 0 would be NaN.
+        phi = rows.clone()
+        phi[:, :, COL_TMIN:] = 0.0
+        q = torch.bmm(phi, feats[cid.clamp_min(0).long()])   # (n, ROWS, 4C)
+        det, udet, vdet, tdet = q.split(C, dim=2)
+        r = 1.0 / det
+        u = udet * r
+        v = vdet * r
+        t = tdet * r
+        e = EDGE_EPS
+        ok = (u >= -e) & (u <= 1.0 + e) & (v >= -e) & (u + v <= 1.0 + e) \
+            & (t >= t_min) & (t <= t_max)
+        kb = torch.where(t > 0.0, t, 0.0).view(torch.int32)
+        kb = torch.where(ok, kb, imax)
+        key_min = kb.amin(dim=2, keepdim=True)                # (n, ROWS, 1)
+        lane = torch.where(kb == key_min, lanes, C).amin(dim=2)
+        key_min = key_min[:, :, 0]
+        valid = (cid >= 0)[:, None]
+        pair = torch.where(key_min == INT32_MAX, -1, cid[:, None] * C + lane)
+        keys[lo * ROWS:(lo + n) * ROWS] = \
+            torch.where(valid, key_min, imax).reshape(-1)
+        pairs[lo * ROWS:(lo + n) * ROWS] = \
+            torch.where(valid, pair, -1).reshape(-1)
+    return keys, pairs
+
+
+def run_regrouped(block_subs, block_cid, tbl, feats, *, G: int, SPB: int,
+                  C: int):
+    """Kernel K2 (``csrc/regroup_sweep.cu``): ``run_regrouped_plain`` on
+    the card, with the dot evaluated as a 10-deep FMA chain instead of a
+    matrix product. CPU tensors take ``run_regrouped_plain``; CUDA tensors
+    launch the kernel or raise. Ids are not range-checked on the card:
+    ``block_subs`` must index rows of ``tbl`` and ``block_cid`` must be
+    below K (stage 1 produces them so)."""
+    if tbl.device.type == "cpu":
+        return run_regrouped_plain(block_subs, block_cid, tbl, feats, G=G,
+                                   SPB=SPB, C=C)
+    dev = tbl.device
+    _build.require(block_subs, torch.int32, "block_subs", dev)
+    _build.require(block_cid, torch.int32, "block_cid", dev)
+    _build.require(tbl, torch.float32, "tbl", dev)
+    _build.require(feats, torch.float32, "feats", dev)
+    n_blocks = block_cid.shape[0]
+    if G * SPB > 1024 or C % 4:
+        raise ValueError(f"regroup sweep needs G*SPB <= 1024 and C % 4 == 0,"
+                         f" got G={G} SPB={SPB} C={C}")
+    if tuple(block_subs.shape) != (n_blocks, SPB) \
+            or tuple(tbl.shape[1:]) != (G, FEAT) \
+            or tuple(feats.shape[1:]) != (FEAT, 4 * C):
+        raise ValueError(
+            f"regroup sweep shapes: block_subs {tuple(block_subs.shape)}, "
+            f"tbl {tuple(tbl.shape)}, feats {tuple(feats.shape)} for "
+            f"n_blocks={n_blocks} G={G} SPB={SPB} C={C}")
+    keys = torch.empty(n_blocks * G * SPB, dtype=torch.int32, device=dev)
+    pairs = torch.empty_like(keys)
+    if n_blocks == 0:
+        return keys, pairs
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.raycore_regroup_sweep(
+            block_subs.data_ptr(), block_cid.data_ptr(), tbl.data_ptr(),
+            feats.data_ptr(), keys.data_ptr(), pairs.data_ptr(), n_blocks,
+            G, SPB, C, -EDGE_EPS, 1.0 + EDGE_EPS, _build.stream_ptr(tbl))
+    _build.check(err, "regroup_sweep")
+    run_regrouped.launches += 1
+    return keys, pairs
+
+
+run_regrouped.launches = 0
+
+
+def combine_rows_grouped(keys, pairs, block_subs, G: int, SPB: int,
+                         n_sub: int):
+    """Merge per-(subgroup, cluster) result rows into per-ray bests: a
+    segment min of the keys over subgroup ids, then a segment min of the
+    pairs among the rows that reach that key (the smallest pair wins a
+    tie). Min does not depend on order, so no sort is needed. Returns
+    per-ray (key, pair) of shape (n_sub*G,)."""
+    n_rows = block_subs.numel()
+    kr = keys.reshape(n_rows, G)
+    pr = pairs.reshape(n_rows, G)
+    subs = block_subs.reshape(n_rows).long()
+    idx = subs[:, None].expand(n_rows, G)
+    dev = keys.device
+    ident = lambda: torch.full((n_sub + 1, G), INT32_MAX, dtype=torch.int32,
+                               device=dev)
+    kk = ident().scatter_reduce(0, idx, kr, "amin")
+    tied = kr == kk[subs]
+    pp = ident().scatter_reduce(0, idx, torch.where(tied, pr, INT32_MAX),
+                                "amin")
+    pp = torch.where(pp == INT32_MAX, -1, pp)
+    return kk[:n_sub].reshape(-1), pp[:n_sub].reshape(-1)
+
+
+def _stage1_cm_core(scene, o, d, t_min, t_max, TILE, G, SPB):
+    """Sort-free stage 1: phase A, compaction of the transposed entry
+    matrix (so the coarse worklist comes out cluster-major), subgroup
+    refine, a second order-preserving compaction, then the rank pack.
+    Returns (block_cid, block_subs, tbl, counts) with counts
+    (coarse pairs, subgroup pairs, blocks)."""
+    SPT = TILE // G
+    R = o.shape[0]
+    n_tiles = R // TILE
+    n_sub = R // G
+
+    entry = phase_a_entry(scene, o, d, t_min, t_max, n_tiles, TILE)
+    # build_worklist on entry.T: rows are cluster ids, cols tile ids, and
+    # the compaction order is cluster-major.
+    cluster_ids, tile_ids = build_worklist(entry.T)
+    stats = subgroup_stats(o, d, t_min, t_max, G)
+    fine = refine_pairs(stats, tile_ids, cluster_ids, scene.cluster_min,
+                        scene.cluster_max, SPT, n_tiles)       # (P, SPT)
+    P = tile_ids.shape[0]
+    spt = torch.arange(SPT, dtype=torch.int32, device=o.device)
+    sub = (tile_ids[:, None] * SPT + spt[None, :]).reshape(-1)
+    cid = cluster_ids[:, None].expand(P, SPT).reshape(-1)
+    sel = compact_indices(torch.isfinite(fine).reshape(-1))
+    block_cid, block_subs = pack_presorted_cluster_major(
+        cid[sel], sub[sel], SPB=SPB, n_sub=n_sub)
+    tbl = ray_table(o, d, t_min, t_max, G)
+    counts = (P, sel.shape[0], block_cid.shape[0])
+    return block_cid, block_subs, tbl, counts
+
+
+def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
+                 payload: str = "full"):
+    """Sweep, grouped combine and finalize. ``o``/``d`` are the unpadded
+    rays; ``R_pad`` is the padded ray count."""
+    R = o.shape[0]
+    n_sub = R_pad // G
+    key, pair = run_regrouped(block_subs, block_cid, tbl, scene.tri_feats,
+                              G=G, SPB=SPB, C=scene.cluster_size)
+    out_key, out_pair = combine_rows_grouped(key, pair, block_subs, G, SPB,
+                                             n_sub)
+    if payload == "slim":
+        # Exact hit, t (the full-precision winning key), prim, instance and
+        # metadata; zero triangle and barycentric.
+        pair_r = out_pair[:R]
+        hit = pair_r >= 0
+        ids = scene.prims_hot[:, 10][pair_r.clamp_min(0)]
+        orig = torch.where(hit, ids, -1)
+        t = torch.where(hit, _t_from_keys(out_key[:R], 0), 0.0)
+        meta = torch.where(hit, scene.prims.metadata[orig.clamp_min(0)], 0)
+        z3 = torch.zeros((R, 3, 3), dtype=torch.float32, device=o.device)
+        tri = Triangle(vertices=z3, normals=z3, tangents=z3,
+                       uv=torch.zeros((R, 3, 2), dtype=torch.float32,
+                                      device=o.device), metadata=meta)
+        return HitResult(hit=hit, triangle=tri, t=t,
+                         barycentric=torch.zeros((R, 3), dtype=torch.float32,
+                                                 device=o.device),
+                         prim_idx=orig,
+                         instance_idx=_hit_instance_idx(scene, orig, hit))
+    t = _t_from_keys(out_key[:R], 0)
+    return finalize_hits_exact(scene, out_pair[:R], t, o, d)
+
+
+def _padded_batch(rays, tile: int, subgroup: int):
+    """Flatten a batch, turn -0 directions into +0 and pad it to whole
+    tiles with rays that never hit (d = 1, t_max = -inf). Returns
+    (o, d, t_min, t_max, R0, G, TILE)."""
+    batch = rays.batch_shape
+    flat = lambda a: a.reshape((-1,) + tuple(a.shape[len(batch):]))
+    o, d = flat(rays.o), flat(rays.d)
+    t_min, t_max = flat(rays.t_min), flat(rays.t_max)
+    R0 = o.shape[0]
+    G = min(subgroup, max(8, 1 << (max(R0, 1) - 1).bit_length()))
+    TILE = min(tile, max(R0, G))
+    TILE = -(-TILE // G) * G
+    d = torch.where(d == 0.0, 0.0, d)
+    pad = (-R0) % TILE
+    if pad:
+        ext = lambda a, f: torch.cat(
+            [a, torch.full((pad,) + tuple(a.shape[1:]), f, dtype=a.dtype,
+                           device=a.device)])
+        o, d = ext(o, 0.0), ext(d, 1.0)
+        t_min, t_max = ext(t_min, 0.0), ext(t_max, -float("inf"))
+    return o, d, t_min, t_max, R0, G, TILE
+
+
+def _closest_hit_regrouped_cm(scene, rays, *, tile: int, subgroup: int,
+                              spb: int, payload: str = "full"):
+    """Compact-stage-1 driver: pad the flat batch to whole tiles, run both
+    stages, restore the batch shape."""
+    batch = rays.batch_shape
+    o, d, t_min, t_max, R0, G, TILE = _padded_batch(rays, tile, subgroup)
+    block_cid, block_subs, tbl, _ = _stage1_cm_core(
+        scene, o, d, t_min, t_max, TILE, G, spb)
+    res = _stage2_core(scene, block_cid, block_subs, tbl, o[:R0], d[:R0],
+                       G, spb, o.shape[0], payload)
+    return res.map(lambda a: a.reshape(batch + tuple(a.shape[1:])))
+
+
+def closest_hit_regrouped(scene, rays, *, tile: int = 512, subgroup: int = 32,
+                          spb: int = 16, passes: int = 1,
+                          payload: str = "full"):
+    """Exact closest hit via the cluster-major regrouped sweep.
+
+    payload: "full" gathers the winning triangle and returns the exact
+    (t, barycentric, triangle) payload; "slim" returns the same exact
+    hit/t/prim_idx/instance_idx/metadata with a zero triangle and
+    barycentric.
+
+    Only passes=1 is ported: every refined candidate is swept."""
+    if scene.sub_chunks != 1:
+        raise ValueError("regrouped engine requires sub_chunks=1 scenes")
+    if passes != 1:
+        raise NotImplementedError(
+            f"passes={passes!r}: the ordered multiwave (passes >= 2, "
+            f"'auto') is ROADMAP.md queue 1 item 7, not ported yet")
+    if payload == "occlusion":
+        raise NotImplementedError(
+            "payload='occlusion' comes with any_hit, ROADMAP.md queue 1 "
+            "item 6")
+    if payload not in ("full", "slim"):
+        raise ValueError(f"payload must be 'full' or 'slim', got {payload}")
+    return _closest_hit_regrouped_cm(scene, rays, tile=tile,
+                                     subgroup=subgroup, spb=spb,
+                                     payload=payload)

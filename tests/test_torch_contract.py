@@ -1,0 +1,105 @@
+"""What the port promises beyond its numbers: it imports no JAX, CPU
+tensors never reach a kernel, a CUDA-less host gets no result from
+chip_smoke.py, and the kernel wrappers raise rather than fall back."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import raycore_tpu_torch as rt
+from raycore_tpu_torch.kernels import _build
+from raycore_tpu_torch.ops import dense as ops_dense
+from raycore_tpu_torch.ops import regroup as ops_regroup
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, raycore_tpu_torch, raycore_tpu_torch.convert, "
+            "raycore_tpu_torch.kernels._build\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'raycore_tpu.'))]\n"
+            "print('JAXMODS', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "JAXMODS []" in out.stdout
+
+
+def test_port_sources_never_import_jax():
+    for p in (REPO / "raycore_tpu_torch").rglob("*.py"):
+        text = p.read_text()
+        assert "import jax" not in text and "from jax" not in text, p
+    text = (REPO / "chip_smoke.py").read_text()
+    assert "import jax" not in text and "raycore_tpu." not in text
+
+
+def test_cpu_tensors_leave_launch_counters_at_zero():
+    ops_dense.phase_a.launches = 0
+    ops_regroup.run_regrouped.launches = 0
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=12), cluster_size=32)
+    rng = np.random.default_rng(0)
+    o = torch.as_tensor(rng.uniform(-0.9, 0.9, (300, 3)), dtype=torch.float32)
+    o[:, 2] = 2.0
+    res = rt.closest_hit(scene, rt.Ray.create(o, torch.tensor([0, 0, -1.0])))
+    assert bool(res.hit.all())
+    assert ops_dense.phase_a.launches == 0
+    assert ops_regroup.run_regrouped.launches == 0
+
+
+def test_wrappers_raise_for_tensors_off_the_cpu_and_cuda():
+    """A tensor that is not on the CPU takes the kernel path or raises;
+    nothing falls back to the plain version."""
+    stats = torch.zeros((4, 16), device="meta")
+    bounds = torch.zeros((6, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops_dense.phase_a(stats, bounds)
+    tbl = torch.zeros((3, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops_regroup.run_regrouped(
+            torch.zeros((1, 2), dtype=torch.int32, device="meta"),
+            torch.zeros((1,), dtype=torch.int32, device="meta"), tbl,
+            torch.zeros((2, 16, 64), device="meta"), G=8, SPB=2, C=16)
+
+
+def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n")
+    fake.chmod(0o755)
+    assert _build.find_nvcc() == str(fake)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: chip_smoke.py runs for real")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

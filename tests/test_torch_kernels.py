@@ -1,0 +1,160 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA card and nvcc and skips without them; this
+file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_kernels.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+import raycore_tpu_torch as rt
+from raycore_tpu_torch.kernels import _build
+from raycore_tpu_torch.ops import dense as ops_dense
+from raycore_tpu_torch.ops import regroup as ops_regroup
+
+pytestmark = pytest.mark.cuda
+
+INT32_MAX = 0x7FFFFFFF
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _incoherent_rays(R, seed, device, zero_dirs=True):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1, 1, (R, 3)).astype(np.float32)
+    o[:, 2] = 2.0
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:, 2] = -np.abs(d[:, 2]) - 0.3
+    if zero_dirs:                 # clamped inverse directions: the widen path
+        d[::7, 0] = 0.0
+        d[1::7, 1] = -0.0
+        d[2::7, 0] = 3e-6
+    return rt.Ray.create(torch.as_tensor(o, device=device),
+                         torch.as_tensor(d, device=device))
+
+
+def _stage1(scene, rays, tile, G, SPB):
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+        rays, tile, G)
+    return ops_regroup._stage1_cm_core(scene, po, pd, ptmin, ptmax, TILE, G,
+                                       SPB)
+
+
+@pytest.mark.parametrize("tile", [128, 512])
+def test_phase_a_kernel_bitwise(cuda, tile):
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=64)
+    rays = _incoherent_rays(2048, 1, cuda)
+    po, pd, ptmin, ptmax, _, _, TILE = ops_regroup._padded_batch(
+        rays, tile, 32)
+    stats, bounds = ops_dense.phase_a_inputs(
+        scene.cluster_min, scene.cluster_max, po, pd, ptmin, ptmax,
+        po.shape[0] // TILE, TILE)
+    # A ragged cluster count with far-away padding bounds.
+    bounds = torch.cat([bounds, torch.full((6, 37), 1e30, device=cuda)], 1)
+    before = ops_dense.phase_a.launches
+    ek = ops_dense.phase_a(stats, bounds)
+    assert ops_dense.phase_a.launches == before + 1
+    ep = ops_dense.phase_a_plain(stats, bounds)
+    assert torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+    assert 0 < int(torch.isfinite(ek).sum()) < ek.numel()
+
+
+@pytest.mark.parametrize("mesh,C,G,SPB", [("grid", 128, 32, 16),
+                                          ("grid", 64, 16, 32),
+                                          ("blobby", 512, 32, 16)])
+def test_regroup_sweep_kernel_matches_plain(cuda, mesh, C, G, SPB):
+    """Same blocks through the kernel and the plain bmm: padding blocks
+    write the sentinels, hit masks agree, t agrees within rtol 2e-6 (the
+    dot's summation order differs) and rows with equal keys name the same
+    triangle. C=512 takes 80 KB of shared memory, past the 48 KB
+    default."""
+    tris = (rt.displaced_grid_mesh(n=40, device=cuda) if mesh == "grid"
+            else rt.blobby_mesh(n_theta=64, n_phi=64, device=cuda))
+    scene = rt.build_dense(tris, cluster_size=C)
+    block_cid, block_subs, tbl, _ = _stage1(
+        scene, _incoherent_rays(1024, 2, cuda), 512, G, SPB)
+    pad = torch.full((3,), -1, dtype=torch.int32, device=cuda)
+    block_cid = torch.cat([block_cid, pad])
+    block_subs = torch.cat([block_subs, block_subs[:3]])
+    kw = dict(G=G, SPB=SPB, C=C)
+    before = ops_regroup.run_regrouped.launches
+    kk, pk = ops_regroup.run_regrouped(block_subs, block_cid, tbl,
+                                       scene.tri_feats, **kw)
+    assert ops_regroup.run_regrouped.launches == before + 1
+    kp, pp = ops_regroup.run_regrouped_plain(block_subs, block_cid, tbl,
+                                             scene.tri_feats, **kw)
+    tail = 3 * G * SPB
+    assert bool((kk[-tail:] == INT32_MAX).all())
+    assert bool((pk[-tail:] == -1).all())
+    hk, hp = kk != INT32_MAX, kp != INT32_MAX
+    assert int(hp.sum()) > 0
+    assert torch.equal(hk, hp)
+    tk, tp = kk[hk].view(torch.float32), kp[hk].view(torch.float32)
+    torch.testing.assert_close(tk, tp, rtol=2e-6, atol=0)
+    # Where the keys agree, the winning lane (smallest on ties) agrees.
+    same_key = kk[hk] == kp[hk]
+    assert torch.equal(pk[hk][same_key], pp[hk][same_key])
+
+
+def test_closest_hit_on_card_matches_cpu_and_oracle(cuda):
+    tris_cpu = rt.displaced_grid_mesh(n=40)
+    rays_cpu = _incoherent_rays(1024, 3, "cpu")
+    ref = rt.closest_hit(rt.build_dense(tris_cpu, cluster_size=128),
+                         rays_cpu)
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=128)
+    rays = _incoherent_rays(1024, 3, cuda)
+    counts = (ops_dense.phase_a.launches, ops_regroup.run_regrouped.launches)
+    got = rt.closest_hit(scene, rays)
+    assert ops_dense.phase_a.launches == counts[0] + 1
+    assert ops_regroup.run_regrouped.launches == counts[1] + 1
+    assert got.t.device.type == "cuda"
+    oracle = rt.closest_hit_brute(scene.prims, rays)
+    for other in (ref, oracle):
+        h = other.hit.cpu()
+        assert torch.equal(h, got.hit.cpu())
+        torch.testing.assert_close(got.t.cpu()[h], other.t.cpu()[h],
+                                   rtol=2e-5, atol=2e-6)
+        differ = got.prim_idx.cpu()[h] != other.prim_idx.cpu()[h]
+        if differ.any():
+            rt_, gt = other.t.cpu()[h][differ], got.t.cpu()[h][differ]
+            assert float(((gt - rt_).abs() / rt_.clamp_min(1e-6)).max()) \
+                < 2e-6
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    stats = torch.zeros((4, 16), device=cuda)
+    bounds = torch.zeros((6, 8), device=cuda)
+    with pytest.raises(TypeError):
+        ops_dense.phase_a(stats.double(), bounds)
+    with pytest.raises(ValueError):
+        ops_dense.phase_a(torch.zeros((16, 4), device=cuda).T, bounds)
+    tbl = torch.zeros((3, 8, 16), device=cuda)
+    feats = torch.zeros((2, 16, 64), device=cuda)
+    subs = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    cid = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ops_regroup.run_regrouped(subs.long(), cid, tbl, feats, G=8, SPB=2,
+                                  C=16)
+    with pytest.raises(ValueError):
+        ops_regroup.run_regrouped(subs, cid, tbl, feats, G=8, SPB=2, C=18)
+
+
+def test_kernel_build_is_cached(cuda):
+    path = _build.build()
+    stamp = path.with_name(path.name + ".sha256")
+    assert stamp.read_text().strip() == _build.source_hash()
+    mtime = path.stat().st_mtime_ns
+    assert _build.build() == path
+    assert path.stat().st_mtime_ns == mtime

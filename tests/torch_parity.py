@@ -1,0 +1,92 @@
+"""Inputs shared by the port's parity tests (tests/test_torch_*.py).
+
+Inputs are NumPy arrays made from a seed and handed to both packages; the
+JAX package runs on the CPU with its Pallas kernels in interpret mode, the
+port on CPU tensors (so its kernel wrappers take their plain versions).
+``check_hits`` is the JAX package's own engine contract
+(tests/test_pallas_regroup.py:_check).
+"""
+import numpy as np
+import jax.numpy as jnp
+import torch
+
+import raycore_tpu as rc
+import raycore_tpu_torch as rt
+from test_pallas_regroup import _check as check_hits  # noqa: F401
+
+torch.set_num_threads(2)
+# Full float32 in any matrix product the plain versions run on a card.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def ray_arrays(R=1024, seed=0, coherent=False, zero_dirs=False):
+    """(o, d) float32 as tests/test_pallas_regroup.py makes them: a
+    downward grid over [-0.9, 0.9]^2 (coherent) or random downward rays.
+    zero_dirs puts exact zeros, -0.0 and tiny components into d, so that
+    safe_invdir clamps and phase A's widening branch runs."""
+    rng = np.random.default_rng(seed)
+    if coherent:
+        side = int(np.sqrt(R))
+        xs = np.linspace(-0.9, 0.9, side, dtype=np.float32)
+        X, Y = np.meshgrid(xs, xs, indexing="ij")
+        o = np.stack([X, Y, np.full_like(X, 3.0)], -1).reshape(-1, 3)
+        d = np.broadcast_to(np.array([0, 0, -1], np.float32), o.shape).copy()
+    else:
+        o = rng.uniform(-1, 1, (R, 3)).astype(np.float32)
+        o[:, 2] = 2.0
+        d = rng.normal(size=(R, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        d[:, 2] = -np.abs(d[:, 2]) - 0.3
+    if zero_dirs:
+        d[::7, 0] = 0.0
+        d[1::7, 1] = -0.0
+        d[2::7, 0] = 3e-6
+        d[3::7, 1] = -1e-5
+    return o, np.ascontiguousarray(d)
+
+
+def jax_rays(o, d, **kw):
+    return rc.Ray.create(o=jnp.asarray(o), d=jnp.asarray(d), **kw)
+
+
+def torch_rays(o, d, **kw):
+    return rt.Ray.create(torch.as_tensor(o), torch.as_tensor(d), **kw)
+
+
+def jax_scene_arrays(scene) -> dict:
+    """A JAX DenseScene as the dict raycore_tpu_torch.convert takes."""
+    out = {k: np.asarray(getattr(scene, k)) for k in
+           ("tri_feats", "cluster_min", "cluster_max", "sub_bounds",
+            "prims_hot", "root_aabb")}
+    out.update({k: np.asarray(getattr(scene.prims, k)) for k in
+                ("vertices", "normals", "tangents", "uv", "metadata")})
+    out.update(n_prims=scene.n_prims, cluster_size=scene.cluster_size,
+               sub_chunks=scene.sub_chunks, payload_mask=scene.payload_mask)
+    return out
+
+
+def np_(x):
+    """NumPy view of a JAX array or a CPU tensor."""
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def bits(x):
+    """int32 bit pattern of a float32 array or tensor."""
+    return np_(x).view(np.int32)
+
+
+def assert_ray_features_close(ref, got, o, d):
+    """(R, 16) ray feature rows of the reference and the port. The port
+    computes o x d (cols 3:6) in plain float32, while the reference's
+    compiler fuses one product of each component into an FMA: the two
+    differ by the rounding of that product plus the final rounding, at
+    most 2 ulp of the larger product. Every other column is bitwise
+    equal."""
+    ref, got = np_(ref), np_(got)
+    rest = [c for c in range(ref.shape[1]) if c not in (3, 4, 5)]
+    assert np.array_equal(bits(ref[:, rest]), bits(got[:, rest]))
+    ao, ad = np.abs(o), np.abs(d)
+    mag = (ao[:, [1, 2, 0]] * ad[:, [2, 0, 1]]
+           + ao[:, [2, 0, 1]] * ad[:, [1, 2, 0]])
+    assert (np.abs(got[:, 3:6] - ref[:, 3:6]) <= 2.0 ** -22 * mag).all()
