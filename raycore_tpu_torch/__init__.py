@@ -1,21 +1,32 @@
 """raycore_tpu_torch — the ray-triangle intersection engine in PyTorch and
 CUDA, beside the JAX package ``raycore_tpu``.
 
-It keeps the JAX package's layout and function names. Tensors stay on the
-device they are made on; a kernel wrapper launches its CUDA kernel for
-CUDA tensors and runs the kernel's plain PyTorch version for CPU tensors.
-The ported slice is ``closest_hit`` on a ``DenseScene``.
+It keeps the JAX package's layout and function names. Entry points make
+their tensors on the CUDA card unless the caller passes ``device="cpu"``;
+tensors then stay on their device, and a kernel wrapper launches its CUDA
+kernel for CUDA tensors and runs the kernel's plain PyTorch version for
+CPU tensors. The ported slice is ``closest_hit`` and ``any_hit`` on a
+``DenseScene``: the regrouped engine for batches of at least 2^19 rays,
+the tile worklist (``closest_hit_dense_pallas*``, ``any_hit_dense_pallas_auto``)
+for smaller batches and for scenes with sub_chunks > 1.
 """
 from .core.ray import Ray
 from .core.triangle import Triangle, fast_intersect_triangle, safe_invdir
 from .accel.brute import HitResult, closest_hit_brute
 from .accel.dense import DenseScene, build_dense
+from .accel.dispatch import scene_any_hit as any_hit
 from .accel.dispatch import scene_closest_hit as closest_hit
-from .ops.regroup import closest_hit_regrouped
+from .ops.dense import (any_hit_dense_pallas_auto, closest_hit_dense_pallas,
+                        closest_hit_dense_pallas_auto,
+                        closest_hit_dense_pallas_topk)
+from .ops.regroup import any_hit_regrouped, closest_hit_regrouped
 from .scene.mesh import (blobby_mesh, build_triangles, displaced_grid_mesh,
                          uv_sphere)
 
 __all__ = ["Ray", "Triangle", "HitResult", "DenseScene", "build_dense",
-           "closest_hit", "closest_hit_regrouped", "closest_hit_brute",
+           "closest_hit", "any_hit", "closest_hit_regrouped",
+           "any_hit_regrouped", "closest_hit_dense_pallas",
+           "closest_hit_dense_pallas_auto", "closest_hit_dense_pallas_topk",
+           "any_hit_dense_pallas_auto", "closest_hit_brute",
            "fast_intersect_triangle", "safe_invdir", "blobby_mesh",
            "build_triangles", "displaced_grid_mesh", "uv_sphere"]

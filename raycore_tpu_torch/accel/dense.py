@@ -1,6 +1,8 @@
 """Dense clustered scene: build and exact finalize (counterpart of
 ``raycore_tpu/accel/dense.py``, partial: ``DenseScene``, the build,
-``gather_hit_payload`` and ``finalize_hits_exact``).
+``gather_hit_payload`` and ``finalize_hits_exact``, plus
+``prim_only_hits``, the payload-free result of the occlusion and slim
+queries).
 
 Build: triangles are sorted spatially and cut into clusters of C
 consecutive triangles. Each triangle is *featurized*: every Möller–Trumbore
@@ -265,6 +267,32 @@ def _hit_instance_idx(scene: DenseScene, orig, hit):
     n = scene.instance_of_prim.shape[0]
     inst = scene.instance_of_prim[orig.clamp(0, n - 1)]
     return torch.where(hit, inst, -1).to(torch.int32)
+
+
+def prim_only_hits(scene: DenseScene, pair, t=None,
+                   metadata: bool = False) -> HitResult:
+    """HitResult of the payload-free queries from table-space winners
+    ``pair`` (-1 on a miss): hit, original prim_idx and instance_idx, with
+    a zero triangle and barycentric. ``t`` (zeros when None) and, with
+    ``metadata=True``, the winner's metadata ride along; the occlusion
+    queries return neither."""
+    R = pair.shape[0]
+    dev = pair.device
+    hit = pair >= 0
+    orig = torch.where(hit, scene.prims_hot[:, 10][pair.clamp_min(0)], -1)
+    t = (torch.zeros(R, dtype=torch.float32, device=dev) if t is None
+         else torch.where(hit, t, 0.0))
+    meta = (torch.where(hit, scene.prims.metadata[orig.clamp_min(0)], 0)
+            if metadata else torch.zeros(R, dtype=torch.int64, device=dev))
+    z3 = torch.zeros((R, 3, 3), dtype=torch.float32, device=dev)
+    tri = Triangle(vertices=z3, normals=z3, tangents=z3,
+                   uv=torch.zeros((R, 3, 2), dtype=torch.float32, device=dev),
+                   metadata=meta)
+    return HitResult(hit=hit, triangle=tri, t=t,
+                     barycentric=torch.zeros((R, 3), dtype=torch.float32,
+                                             device=dev),
+                     prim_idx=orig,
+                     instance_idx=_hit_instance_idx(scene, orig, hit))
 
 
 def finalize_hits_exact(scene: DenseScene, pair, t_approx, o, d) -> HitResult:

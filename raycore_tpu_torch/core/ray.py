@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from .device import default_device
+
 INF = math.inf
 
 
@@ -28,9 +30,11 @@ class Ray:
     def create(cls, o, d, t_min=0.0, t_max=INF, time=0.0,
                device=None) -> "Ray":
         """Broadcast origins, directions and the scalar fields to one batch
-        shape. ``device`` defaults to the device of ``o``."""
-        if device is None:
-            device = o.device if isinstance(o, torch.Tensor) else "cpu"
+        shape. ``device`` defaults to the device of ``o`` when it is a
+        tensor, else to the CUDA card."""
+        if device is None and isinstance(o, torch.Tensor):
+            device = o.device
+        device = default_device(device)
         o = torch.as_tensor(o, dtype=torch.float32, device=device)
         d = torch.as_tensor(d, dtype=torch.float32, device=device)
         batch = torch.broadcast_shapes(o.shape[:-1], d.shape[:-1])

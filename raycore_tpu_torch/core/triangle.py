@@ -21,6 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import default_device
+
 
 @dataclasses.dataclass
 class Triangle:
@@ -36,9 +38,11 @@ class Triangle:
     @classmethod
     def create(cls, vertices, normals=None, tangents=None, uv=None,
                metadata=None, device=None) -> "Triangle":
-        if device is None:
-            device = (vertices.device if isinstance(vertices, torch.Tensor)
-                      else "cpu")
+        """``device`` defaults to the device of ``vertices`` when it is a
+        tensor, else to the CUDA card."""
+        if device is None and isinstance(vertices, torch.Tensor):
+            device = vertices.device
+        device = default_device(device)
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
         vertices = f32(vertices)
         batch = tuple(vertices.shape[:-2])

@@ -24,18 +24,12 @@
 // rounded operations and PyTorch's NaN-propagating min/max, so the two
 // agree bit for bit.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "featurized.cuh"
 
 namespace {
 
-// torch.minimum / torch.maximum on the card: NaN propagates.
-__device__ __forceinline__ float min_prop(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
-}
-__device__ __forceinline__ float max_prop(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
+using raycore::max_prop;
+using raycore::min_prop;
 
 __global__ void phase_a_kernel(const float* __restrict__ stats,
                                const float* __restrict__ bounds,

@@ -32,13 +32,12 @@
 // into an FMA and the epilogue matches the plain version's rounding; only
 // the dot's summation order differs from the plain matrix product.
 
-#include <climits>
-#include <cuda_runtime.h>
+#include "featurized.cuh"
 
 namespace {
 
-constexpr int FEAT = 16;    // ray-table and feature-table row width
-constexpr int KFEAT = 10;   // feature rows that can be nonzero
+using namespace raycore;
+
 constexpr int COL_TMIN = 13;
 constexpr int COL_TMAX = 14;
 
@@ -60,21 +59,14 @@ __global__ void regroup_sweep_kernel(const int* __restrict__ block_subs,
     pair_out[out] = -1;
     return;
   }
-  // Rows 0..KFEAT-1 of feats[cid] are contiguous: KFEAT * 4C floats.
-  const float4* src = reinterpret_cast<const float4*>(
-      feats + (size_t)cid * FEAT * 4 * C);
-  const int n4 = KFEAT * C;
-  for (int i = r; i < n4; i += blockDim.x) table4[i] = __ldg(src + i);
+  stage_table(table4, feats, cid, C);
 
   const int sub = block_subs[(size_t)b * SPB + r / G];
-  const float4* row = reinterpret_cast<const float4*>(
-      tbl + ((size_t)sub * G + r % G) * FEAT);
-  const float4 p0 = row[0], p1 = row[1], p2 = row[2], p3 = row[3];
-  const float phi[KFEAT] = {p0.x, p0.y, p0.z, p0.w, p1.x,
-                            p1.y, p1.z, p1.w, p2.x, p2.y};
-  static_assert(COL_TMIN == 13 && COL_TMAX == 14, "t range in p3.y, p3.z");
-  const float t_min = p3.y;
-  const float t_max = p3.z;
+  const float* row = tbl + ((size_t)sub * G + r % G) * FEAT;
+  float phi[KFEAT];
+  load_phi(row, phi);
+  const float t_min = row[COL_TMIN];
+  const float t_max = row[COL_TMAX];
   __syncthreads();
 
   const int C4 = C / 4;   // float4 columns per quantity block
@@ -82,32 +74,12 @@ __global__ void regroup_sweep_kernel(const int* __restrict__ block_subs,
   int lane = C;
   for (int c4 = 0; c4 < C4; ++c4) {
     float q[4][4];        // [quantity][lane j of the four]
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int f = 0; f < KFEAT; ++f) {
-        const float4 w = table4[f * 4 * C4 + k * C4 + c4];
-        acc.x = fmaf(phi[f], w.x, acc.x);
-        acc.y = fmaf(phi[f], w.y, acc.y);
-        acc.z = fmaf(phi[f], w.z, acc.z);
-        acc.w = fmaf(phi[f], w.w, acc.w);
-      }
-      q[k][0] = acc.x;
-      q[k][1] = acc.y;
-      q[k][2] = acc.z;
-      q[k][3] = acc.w;
-    }
+    featurized_quads(table4, C, 0, C4, c4, phi, q);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float rcp = __fdiv_rn(1.0f, q[0][j]);
-      const float u = __fmul_rn(q[1][j], rcp);
-      const float v = __fmul_rn(q[2][j], rcp);
-      const float t = __fmul_rn(q[3][j], rcp);
-      const bool ok = (u >= edge_lo) && (u <= edge_hi) && (v >= edge_lo) &&
-                      (__fadd_rn(u, v) <= edge_hi) && (t >= t_min) &&
-                      (t <= t_max);
-      const int kb = ok ? __float_as_int(t > 0.f ? t : 0.f) : INT_MAX;
+      float t;
+      const bool ok = mt_accept(q, j, edge_lo, edge_hi, t_min, t_max, &t);
+      const int kb = ok ? t_key(t) : INT_MAX;
       if (kb < best) {
         best = kb;
         lane = c4 * 4 + j;

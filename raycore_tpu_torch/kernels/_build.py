@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All of ``raycore_tpu_torch/csrc/*.cu`` is compiled by one ``nvcc`` call
+Each ``raycore_tpu_torch/csrc/*.cu`` is compiled to an object by its own
+``nvcc`` process, all started together, and one more ``nvcc`` links them
 into ``raycore_tpu_torch/_build/libraycore_kernels.so``, a shared library
 with a plain C interface loaded with ``ctypes``. The build runs at first
 use and is cached by a hash of the sources and flags, so the first kernel
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -29,7 +31,7 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libraycore_kernels.so"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,10 @@ _SIGNATURES = {
     "raycore_phase_a": (_P, _P, _P, _I, _I, _F, _P),
     "raycore_regroup_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                               _F, _P),
+    "raycore_worklist_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _F, _F, _F, _P),
+    "raycore_occlusion_sweep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _F, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -83,20 +89,30 @@ def build() -> Path:
             and stamp.read_text().strip() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed (nvcc exit "
-                           f"{proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    tmp_stamp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.sha256"
-    tmp_stamp.write_text(digest + "\n")
-    os.replace(tmp_stamp, stamp)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [f"{tmp}/{p.stem}.o" for p in sources()]
+        _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                   for p, o in zip(sources(), objs)])
+        _nvcc_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}/{LIB_NAME}",
+                    *objs]])
+        os.replace(f"{tmp}/{LIB_NAME}", lib_path)
+        Path(tmp, "stamp").write_text(digest + "\n")
+        os.replace(f"{tmp}/stamp", stamp)
     return lib_path
+
+
+def _nvcc_all(cmds) -> None:
+    """Run the commands at once; raise with the output of the first that
+    fails once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"kernel build failed (nvcc exit "
+                               f"{p.returncode}): {' '.join(p.args)}\n{out}")
 
 
 def library() -> ctypes.CDLL:

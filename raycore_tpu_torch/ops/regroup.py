@@ -16,30 +16,31 @@
 
 The block grid is sized exactly from the data (a host sync on the
 compactions and one ``.item()`` on the block count); nothing is sized by
-a capacity guess. Only ``passes=1`` and the compact stage 1 are ported.
+a capacity guess. Only ``passes=1`` and the compact stage 1 are ported;
+every payload ("full", "slim" and any_hit's "occlusion") takes the compact
+stage 1.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ..accel.brute import HitResult
-from ..accel.dense import (FEAT, _hit_instance_idx, finalize_hits_exact,
+from ..accel.dense import (FEAT, finalize_hits_exact, prim_only_hits,
                            ray_features)
-from ..core.triangle import Triangle, safe_invdir
+from ..core.triangle import safe_invdir
 from ..kernels import _build
-from .dense import _t_from_keys, build_worklist, compact_indices, \
-    interval_entry, phase_a_entry
+from .dense import (EDGE_EPS, INT32_MAX, PLAIN_CHUNK_ELEMS, _t_from_keys,
+                    build_worklist, compact_indices, flat_rays,
+                    interval_entry, pad_rays, phase_a_entry)
 
-INT32_MAX = 0x7FFFFFFF
+PAYLOADS = ("full", "slim", "occlusion")
 
 # Ray-table layout: ray_features cols 0:13 (d, o x d, o, 1, invd) plus
 # t_min in col 13 and t_max in col 14. Triangle feature rows 13/14 are
 # zero, so the extra columns never reach the product.
 COL_TMIN = 13
 COL_TMAX = 14
-EDGE_EPS = 1e-5   # barycentric acceptance slack of the featurized test
-# The plain sweep's product chunk: 2^27 float32 elements (512 MiB).
-PLAIN_CHUNK_ELEMS = 1 << 27
 
 
 def ray_table(o, d, t_min, t_max, G: int):
@@ -262,21 +263,11 @@ def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
     if payload == "slim":
         # Exact hit, t (the full-precision winning key), prim, instance and
         # metadata; zero triangle and barycentric.
-        pair_r = out_pair[:R]
-        hit = pair_r >= 0
-        ids = scene.prims_hot[:, 10][pair_r.clamp_min(0)]
-        orig = torch.where(hit, ids, -1)
-        t = torch.where(hit, _t_from_keys(out_key[:R], 0), 0.0)
-        meta = torch.where(hit, scene.prims.metadata[orig.clamp_min(0)], 0)
-        z3 = torch.zeros((R, 3, 3), dtype=torch.float32, device=o.device)
-        tri = Triangle(vertices=z3, normals=z3, tangents=z3,
-                       uv=torch.zeros((R, 3, 2), dtype=torch.float32,
-                                      device=o.device), metadata=meta)
-        return HitResult(hit=hit, triangle=tri, t=t,
-                         barycentric=torch.zeros((R, 3), dtype=torch.float32,
-                                                 device=o.device),
-                         prim_idx=orig,
-                         instance_idx=_hit_instance_idx(scene, orig, hit))
+        return prim_only_hits(scene, out_pair[:R],
+                              t=_t_from_keys(out_key[:R], 0), metadata=True)
+    if payload == "occlusion":
+        # any_hit's contract: hit, occluder prim and instance only.
+        return prim_only_hits(scene, out_pair[:R])
     t = _t_from_keys(out_key[:R], 0)
     return finalize_hits_exact(scene, out_pair[:R], t, o, d)
 
@@ -285,23 +276,12 @@ def _padded_batch(rays, tile: int, subgroup: int):
     """Flatten a batch, turn -0 directions into +0 and pad it to whole
     tiles with rays that never hit (d = 1, t_max = -inf). Returns
     (o, d, t_min, t_max, R0, G, TILE)."""
-    batch = rays.batch_shape
-    flat = lambda a: a.reshape((-1,) + tuple(a.shape[len(batch):]))
-    o, d = flat(rays.o), flat(rays.d)
-    t_min, t_max = flat(rays.t_min), flat(rays.t_max)
+    o, d, t_min, t_max = flat_rays(rays)
     R0 = o.shape[0]
     G = min(subgroup, max(8, 1 << (max(R0, 1) - 1).bit_length()))
     TILE = min(tile, max(R0, G))
     TILE = -(-TILE // G) * G
-    d = torch.where(d == 0.0, 0.0, d)
-    pad = (-R0) % TILE
-    if pad:
-        ext = lambda a, f: torch.cat(
-            [a, torch.full((pad,) + tuple(a.shape[1:]), f, dtype=a.dtype,
-                           device=a.device)])
-        o, d = ext(o, 0.0), ext(d, 1.0)
-        t_min, t_max = ext(t_min, 0.0), ext(t_max, -float("inf"))
-    return o, d, t_min, t_max, R0, G, TILE
+    return (*pad_rays(o, d, t_min, t_max, TILE), R0, G, TILE)
 
 
 def _closest_hit_regrouped_cm(scene, rays, *, tile: int, subgroup: int,
@@ -325,7 +305,8 @@ def closest_hit_regrouped(scene, rays, *, tile: int = 512, subgroup: int = 32,
     payload: "full" gathers the winning triangle and returns the exact
     (t, barycentric, triangle) payload; "slim" returns the same exact
     hit/t/prim_idx/instance_idx/metadata with a zero triangle and
-    barycentric.
+    barycentric; "occlusion" is ``any_hit_regrouped``'s mode: hit, prim
+    and instance only.
 
     Only passes=1 is ported: every refined candidate is swept."""
     if scene.sub_chunks != 1:
@@ -334,12 +315,19 @@ def closest_hit_regrouped(scene, rays, *, tile: int = 512, subgroup: int = 32,
         raise NotImplementedError(
             f"passes={passes!r}: the ordered multiwave (passes >= 2, "
             f"'auto') is ROADMAP.md queue 1 item 7, not ported yet")
-    if payload == "occlusion":
-        raise NotImplementedError(
-            "payload='occlusion' comes with any_hit, ROADMAP.md queue 1 "
-            "item 6")
-    if payload not in ("full", "slim"):
-        raise ValueError(f"payload must be 'full' or 'slim', got {payload}")
+    if payload not in PAYLOADS:
+        raise ValueError(f"payload must be one of {PAYLOADS}, got {payload}")
     return _closest_hit_regrouped_cm(scene, rays, tile=tile,
                                      subgroup=subgroup, spb=spb,
                                      payload=payload)
+
+
+def any_hit_regrouped(scene, rays, *, tile: int = 2048, subgroup: int = 32,
+                      spb: int = 16):
+    """Occlusion via the regrouped sweep: the closest-hit candidates and
+    sweep with t_min forced to 0, so the occluder is the nearest hit in
+    [0, t_max]. Only hit, prim_idx and instance_idx are contractual; t,
+    barycentric and the triangle are zeros."""
+    rays0 = dataclasses.replace(rays, t_min=torch.zeros_like(rays.t_min))
+    return closest_hit_regrouped(scene, rays0, tile=tile, subgroup=subgroup,
+                                 spb=spb, payload="occlusion")

@@ -4,24 +4,28 @@ partial: ``uv_sphere``, ``build_triangles``, ``blobby_mesh`` and
 
 The geometry is built on the host in NumPy with the same code and the same
 ``default_rng(seed)`` draws as the JAX package, so both packages get the
-same bits; the result is handed over as tensors on the requested device.
+same bits; the result is handed over as tensors on the requested device,
+the CUDA card unless the caller passes another.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core.device import default_device
 from ..core.triangle import Triangle
 
 
 def build_triangles(vertices, faces, normals=None, uvs=None, metadata=None,
-                    drop_degenerate=True, device="cpu") -> Triangle:
+                    drop_degenerate=True, device=None) -> Triangle:
     """Triangle SoA from indexed mesh data.
 
     ``vertices``: (V, 3) float; ``faces``: (F, 3) int (0-based);
     ``normals``/``uvs``: optional per-vertex data; ``metadata``: (F,) uint32
     values or a callable ``face_idx -> int``, defaulting to the face index.
-    Faces with a zero cross product are dropped."""
+    Faces with a zero cross product are dropped. ``device`` defaults to
+    the CUDA card (``core/device.py``)."""
+    device = default_device(device)
     vertices = np.asarray(vertices, np.float32)
     faces = np.asarray(faces, np.int64)
     tri_v = vertices[faces]                      # (F, 3, 3)
@@ -93,11 +97,12 @@ def uv_sphere(center=(0, 0, 0), radius=1.0, n_theta=16, n_phi=32):
 
 
 def blobby_mesh(n_theta=354, n_phi=354, radius=1.0, amplitude=0.25,
-                seed=0, octaves=8, metadata=None, device="cpu") -> Triangle:
+                seed=0, octaves=8, metadata=None, device=None) -> Triangle:
     """A closed surface: a UV sphere displaced radially by multi-octave
     smooth noise, about 2*n_theta*n_phi triangles. Every ray through it
     crosses at least two surface layers and the silhouette mixes hits and
     misses."""
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     v, f, _ = uv_sphere((0.0, 0.0, 0.0), 1.0, n_theta, n_phi)
     p = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-9)
@@ -112,9 +117,10 @@ def blobby_mesh(n_theta=354, n_phi=354, radius=1.0, amplitude=0.25,
 
 
 def displaced_grid_mesh(n=128, extent=2.0, amplitude=0.35, seed=0,
-                        metadata=None, device="cpu") -> Triangle:
+                        metadata=None, device=None) -> Triangle:
     """A bumpy heightfield grid with 2*n^2 triangles, spatially coherent
     like a scanned surface."""
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     xs = np.linspace(-extent / 2, extent / 2, n + 1, dtype=np.float32)
     X, Y = np.meshgrid(xs, xs, indexing="ij")

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import raycore_tpu_torch as rt
+from raycore_tpu_torch import convert
 from raycore_tpu_torch.kernels import _build
 from raycore_tpu_torch.ops import dense as ops_dense
 from raycore_tpu_torch.ops import regroup as ops_regroup
@@ -45,17 +46,45 @@ def test_port_sources_never_import_jax():
     assert "import jax" not in text and "raycore_tpu." not in text
 
 
+KERNELS = (ops_dense.phase_a, ops_regroup.run_regrouped,
+           ops_dense.run_worklist, ops_dense.run_occlusion)
+
+
 def test_cpu_tensors_leave_launch_counters_at_zero():
-    ops_dense.phase_a.launches = 0
-    ops_regroup.run_regrouped.launches = 0
-    scene = rt.build_dense(rt.displaced_grid_mesh(n=12), cluster_size=32)
+    """Every query path on CPU tensors: the regrouped engine (K1, K2), the
+    worklist closest hit (K3) and the worklist occlusion (K4)."""
+    for fn in KERNELS:
+        fn.launches = 0
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=12, device="cpu"),
+                           cluster_size=32)
     rng = np.random.default_rng(0)
     o = torch.as_tensor(rng.uniform(-0.9, 0.9, (300, 3)), dtype=torch.float32)
     o[:, 2] = 2.0
-    res = rt.closest_hit(scene, rt.Ray.create(o, torch.tensor([0, 0, -1.0])))
-    assert bool(res.hit.all())
-    assert ops_dense.phase_a.launches == 0
-    assert ops_regroup.run_regrouped.launches == 0
+    rays = rt.Ray.create(o, torch.tensor([0, 0, -1.0]))
+    for res in (rt.closest_hit(scene, rays),
+                ops_regroup.closest_hit_regrouped(scene, rays, tile=2048),
+                rt.any_hit(scene, rays),
+                ops_regroup.any_hit_regrouped(scene, rays)):
+        assert bool(res.hit.all())
+    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card the default device raises instead of making CPU
+    tensors; with device="cpu" the same call runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default is the card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.displaced_grid_mesh(n=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.Ray.create([0.0, 0.0, 1.0], [0.0, 0.0, -1.0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.ray_from_numpy(np.zeros((2, 3)), np.ones((2, 3)),
+                               np.zeros(2), np.ones(2))
+    assert rt.displaced_grid_mesh(n=4, device="cpu").vertices.device.type \
+        == "cpu"
+    # A tensor input keeps its own device.
+    assert rt.Ray.create(torch.zeros(3), torch.ones(3)).o.device.type == "cpu"
 
 
 def test_wrappers_raise_for_tensors_off_the_cpu_and_cuda():
@@ -71,6 +100,19 @@ def test_wrappers_raise_for_tensors_off_the_cpu_and_cuda():
             torch.zeros((1, 2), dtype=torch.int32, device="meta"),
             torch.zeros((1,), dtype=torch.int32, device="meta"), tbl,
             torch.zeros((2, 16, 64), device="meta"), G=8, SPB=2, C=16)
+    ids = torch.zeros((1,), dtype=torch.int32, device="meta")
+    phi = torch.zeros((128, 16), device="meta")
+    rows = torch.zeros((128,), device="meta")
+    feats = torch.zeros((2, 16, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops_dense.run_worklist(ids, ids, phi, feats,
+                               torch.zeros((2, 1, 128), device="meta"), rows,
+                               torch.zeros((128,), dtype=torch.int32,
+                                           device="meta"),
+                               TILE=128, C=16, SUB=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops_dense.run_occlusion(ids, ids, phi, feats, rows, rows, TILE=128,
+                                C=16)
 
 
 def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
@@ -84,6 +126,37 @@ def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
     fake.write_text("#!/bin/sh\n")
     fake.chmod(0o755)
     assert _build.find_nvcc() == str(fake)
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """With a stand-in nvcc: one compile per source and one link, the
+    library stamped with the sources' hash and reused while they match,
+    and a failing compile raised with its output and no library left."""
+    log = tmp_path / "log"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f'#!/bin/sh\necho "$@" >> {log}\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", fake)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    path = _build.build()
+    assert path.read_text() == "built\n"
+    calls = log.read_text().splitlines()
+    assert sorted(c.split()[-1] for c in calls if " -c " in c) \
+        == sorted(str(p) for p in _build.sources())
+    assert [" -shared " in c for c in calls] \
+        == [False] * len(_build.sources()) + [True]
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) \
+        == [_build.LIB_NAME, _build.LIB_NAME + ".sha256"]
+    assert _build.build() == path and len(log.read_text().splitlines()) \
+        == len(calls)
+    path.unlink()
+    fake.write_text("#!/bin/sh\necho broken source\nexit 2\n")
+    with pytest.raises(RuntimeError, match="broken source"):
+        _build.build()
+    assert not path.exists()
 
 
 def test_chip_smoke_refuses_without_cuda():

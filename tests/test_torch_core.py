@@ -22,7 +22,7 @@ from raycore_tpu_torch.accel import morton as t_morton
 from raycore_tpu_torch.accel import types as t_types
 from raycore_tpu_torch.core import triangle as t_tri
 from raycore_tpu_torch.scene import mesh as t_mesh
-from torch_parity import bits, jax_rays, np_, ray_arrays, torch_rays
+from torch_parity import CPU, bits, jax_rays, np_, ray_arrays, torch_rays
 
 
 def _same_triangles(a, b):
@@ -33,15 +33,16 @@ def _same_triangles(a, b):
 
 
 @pytest.mark.parametrize("make", [
-    lambda m: m.displaced_grid_mesh(n=40),
-    lambda m: m.displaced_grid_mesh(n=17, extent=3.0, amplitude=0.2, seed=5),
-    lambda m: m.blobby_mesh(n_theta=32, n_phi=24, seed=2),
-    lambda m: m.build_triangles(*m.uv_sphere((0.5, 0, -1), 2.0, 6, 9)[:2],
-                                normals=m.uv_sphere((0.5, 0, -1), 2.0, 6,
-                                                    9)[2]),
+    lambda m, **kw: m.displaced_grid_mesh(n=40, **kw),
+    lambda m, **kw: m.displaced_grid_mesh(n=17, extent=3.0, amplitude=0.2,
+                                          seed=5, **kw),
+    lambda m, **kw: m.blobby_mesh(n_theta=32, n_phi=24, seed=2, **kw),
+    lambda m, **kw: m.build_triangles(
+        *m.uv_sphere((0.5, 0, -1), 2.0, 6, 9)[:2],
+        normals=m.uv_sphere((0.5, 0, -1), 2.0, 6, 9)[2], **kw),
 ], ids=["grid40", "grid17", "blobby", "sphere"])
 def test_mesh_generators_match(make):
-    _same_triangles(make(j_mesh), make(t_mesh))
+    _same_triangles(make(j_mesh), make(t_mesh, device=CPU))
 
 
 def test_uv_sphere_and_build_triangles_options_match():
@@ -56,7 +57,7 @@ def test_uv_sphere_and_build_triangles_options_match():
     uvs = np.arange(8, dtype=np.float32).reshape(4, 2)
     kw = dict(uvs=uvs, metadata=lambda i: 100 + i)
     a = j_mesh.build_triangles(verts, faces, **kw)
-    b = t_mesh.build_triangles(verts, faces, **kw)
+    b = t_mesh.build_triangles(verts, faces, device=CPU, **kw)
     assert b.vertices.shape[0] == 2
     _same_triangles(a, b)
 
@@ -116,7 +117,7 @@ def test_morton_codes_match():
 
 def test_types_pad_and_bitcasts_match():
     tris = j_mesh.displaced_grid_mesh(n=5)
-    ttris = t_mesh.displaced_grid_mesh(n=5)
+    ttris = t_mesh.displaced_grid_mesh(n=5, device=CPU)
     _same_triangles(j_types.pad_triangles(tris, 64),
                     t_types.pad_triangles(ttris, 64))
     assert t_types.pad_triangles(ttris, 50) is ttris      # already full
@@ -135,7 +136,7 @@ def test_ray_and_triangle_create_broadcast():
     assert r.batch_shape == (4, 5)
     assert r.d.shape == (4, 5, 3) and r.t_max.shape == (4, 5)
     assert float(r.t_max[2, 3]) == 7.0 and float(r.t_min.sum()) == 0.0
-    tri = rt.Triangle.create(np.zeros((6, 3, 3), np.float32))
+    tri = rt.Triangle.create(np.zeros((6, 3, 3), np.float32), device=CPU)
     assert tri.batch_shape == (6,) and len(tri) == 6
     assert tri.uv.shape == (6, 3, 2) and tri.metadata.dtype == torch.int64
 
@@ -148,7 +149,7 @@ def test_brute_oracle_matches_jax(seed, chunk):
     random rather than lattice-aligned.)"""
     o, d = ray_arrays(R=1024, seed=seed)
     jm = j_mesh.displaced_grid_mesh(n=24)
-    tm = t_mesh.displaced_grid_mesh(n=24)
+    tm = t_mesh.displaced_grid_mesh(n=24, device=CPU)
     ref = j_brute(jm, jax_rays(o, d))
     got = rt.closest_hit_brute(tm, torch_rays(o, d), tri_chunk=chunk)
     h = np_(ref.hit)
@@ -175,7 +176,8 @@ def test_brute_oracle_edge_cracks_match_compiled_jax():
         np.array([0, 0, -1], np.float32), o.shape))
     jr = jax_rays(o, d)
     ref = np_(jax.jit(j_brute)(tris, jr).hit)
-    got = np_(rt.closest_hit_brute(t_mesh.displaced_grid_mesh(n=40),
+    got = np_(rt.closest_hit_brute(t_mesh.displaced_grid_mesh(n=40,
+                                                              device=CPU),
                                    torch_rays(o, d)).hit)
     assert np_(j_brute(tris, jr).hit).all()
     assert 300 < (~got).sum() < 700

@@ -25,7 +25,7 @@ from raycore_tpu_torch import convert
 from raycore_tpu_torch.accel import dense as t_dense
 from raycore_tpu_torch.accel import lbvh as t_lbvh
 from raycore_tpu_torch.scene import mesh as t_mesh
-from torch_parity import (assert_ray_features_close, jax_rays,
+from torch_parity import (CPU, assert_ray_features_close, jax_rays,
                           jax_scene_arrays, np_, ray_arrays, torch_rays)
 
 TABLES = ("tri_feats", "cluster_min", "cluster_max", "sub_bounds",
@@ -35,9 +35,9 @@ TABLES = ("tri_feats", "cluster_min", "cluster_max", "sub_bounds",
 def _meshes(kind):
     if kind == "grid":
         return (j_mesh.displaced_grid_mesh(n=40),
-                t_mesh.displaced_grid_mesh(n=40))
+                t_mesh.displaced_grid_mesh(n=40, device=CPU))
     return (j_mesh.blobby_mesh(n_theta=64, n_phi=64),
-            t_mesh.blobby_mesh(n_theta=64, n_phi=64))
+            t_mesh.blobby_mesh(n_theta=64, n_phi=64, device=CPU))
 
 
 def _flush(a):
@@ -78,7 +78,7 @@ def test_payload_mask_with_cold_fields_matches():
     v, f, n = j_mesh.uv_sphere((0, 0, 0), 1.0, 12, 16)
     uvs = np.stack([v[:, 0], v[:, 2]], -1).astype(np.float32)
     jm = j_mesh.build_triangles(v, f, normals=n, uvs=uvs)
-    tm = t_mesh.build_triangles(v, f, normals=n, uvs=uvs)
+    tm = t_mesh.build_triangles(v, f, normals=n, uvs=uvs, device=CPU)
     js = j_dense.build_dense(jm, cluster_size=64)
     ts = rt.build_dense(tm, cluster_size=64)
     assert ts.payload_mask == js.payload_mask == 0b101
@@ -176,7 +176,7 @@ def test_finalize_hits_exact_matches():
 def test_dense_scene_from_numpy_equals_port_build():
     jm, tm = _meshes("grid")
     js = j_dense.build_dense(jm, cluster_size=64)
-    conv = convert.dense_scene_from_numpy(jax_scene_arrays(js))
+    conv = convert.dense_scene_from_numpy(jax_scene_arrays(js), device=CPU)
     ts = rt.build_dense(tm, cluster_size=64)
     for f in TABLES:
         _same(getattr(conv, f), getattr(ts, f), f)
@@ -188,12 +188,13 @@ def test_dense_scene_from_numpy_equals_port_build():
             conv.payload_mask) == (ts.n_prims, ts.cluster_size,
                                    ts.sub_chunks, ts.payload_mask)
     o, d = ray_arrays(R=256, seed=4)
-    r = convert.ray_from_numpy(o, d, np.zeros(256), np.full(256, np.inf))
+    r = convert.ray_from_numpy(o, d, np.zeros(256), np.full(256, np.inf),
+                               device=CPU)
     assert torch.equal(r.o, torch_rays(o, d).o)
 
 
 def test_instance_side_array_and_layout_check():
-    tm = t_mesh.displaced_grid_mesh(n=8)
+    tm = t_mesh.displaced_grid_mesh(n=8, device=CPU)
     inst = np.arange(tm.vertices.shape[0]) % 3
     ts = rt.build_dense(tm, cluster_size=32, instance_of=inst)
     o, d = ray_arrays(R=64, seed=5, coherent=True)

@@ -108,15 +108,18 @@ def test_regroup_sweep_kernel_matches_plain(cuda, mesh, C, G, SPB):
 
 
 def test_closest_hit_on_card_matches_cpu_and_oracle(cuda):
-    tris_cpu = rt.displaced_grid_mesh(n=40)
+    """The regrouped engine (K1, K2) on the card. 1024 rays are below
+    REGROUP_MIN_RAYS, so it is called directly, as dispatch calls it for
+    large batches."""
+    query = lambda s, r: ops_regroup.closest_hit_regrouped(s, r, tile=2048)
+    tris_cpu = rt.displaced_grid_mesh(n=40, device="cpu")
     rays_cpu = _incoherent_rays(1024, 3, "cpu")
-    ref = rt.closest_hit(rt.build_dense(tris_cpu, cluster_size=128),
-                         rays_cpu)
+    ref = query(rt.build_dense(tris_cpu, cluster_size=128), rays_cpu)
     scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
                            cluster_size=128)
     rays = _incoherent_rays(1024, 3, cuda)
     counts = (ops_dense.phase_a.launches, ops_regroup.run_regrouped.launches)
-    got = rt.closest_hit(scene, rays)
+    got = query(scene, rays)
     assert ops_dense.phase_a.launches == counts[0] + 1
     assert ops_regroup.run_regrouped.launches == counts[1] + 1
     assert got.t.device.type == "cuda"
@@ -131,6 +134,119 @@ def test_closest_hit_on_card_matches_cpu_and_oracle(cuda):
             rt_, gt = other.t.cpu()[h][differ], got.t.cpu()[h][differ]
             assert float(((gt - rt_).abs() / rt_.clamp_min(1e-6)).max()) \
                 < 2e-6
+
+
+def _worklist(scene, rays, tile):
+    """The tile worklist of a query as the driver builds it."""
+    o, d, t_min, t_max = ops_dense.flat_rays(rays)
+    TILE = ops_dense._tile_of(rays, tile)
+    tids, cids, phi, tmin, key0, _, _, _ = ops_dense._phase_a_and_worklist(
+        scene, o, d, t_min, t_max, TILE=TILE)
+    return tids, cids, phi, tmin, key0, TILE
+
+
+def _worklist_scene(C, SUB, cuda):
+    tris = rt.blobby_mesh(n_theta=64, n_phi=64, device=cuda)
+    return rt.build_dense(tris, cluster_size=C, sub_chunks=SUB)
+
+
+def _blobby_rays(R, seed, device):
+    """Rays through the blob: several layers, hits and misses."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5, 0.5, (R, 3)).astype(np.float32)
+    o[:, 2] = 2.5
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:, 2] = -np.abs(d[:, 2]) - 0.5
+    d[::7, 0] = 0.0
+    return rt.Ray.create(torch.as_tensor(o, device=device),
+                         torch.as_tensor(d, device=device))
+
+
+@pytest.mark.parametrize("TILE", [8, 100, 512])
+@pytest.mark.parametrize("SUB", [1, 4])
+@pytest.mark.parametrize("C", [64, 256, 512])
+def test_worklist_sweep_kernel_matches_plain(cuda, C, SUB, TILE):
+    """K3 against its plain version on a query's own worklist, seeded from
+    t_max and then from a first pass (key0/pair0): equal hit masks, t
+    within rtol 2e-6 (the dot's summation order differs) and equal pairs
+    where the keys are equal. C=512 takes 80 KB of shared memory; TILE=8
+    and 100 are not multiples of a warp."""
+    scene = _worklist_scene(C, SUB, cuda)
+    tids, cids, phi, tmin, key0, TILE = _worklist(
+        scene, _blobby_rays(1000, 4, cuda), TILE)
+    kw = dict(TILE=TILE, C=C, SUB=SUB)
+    args = (tids, cids, phi, scene.tri_feats, scene.sub_bounds, tmin)
+    bits = ops_dense._idx_bits(C // SUB)
+    for pass_ in range(2):
+        before = ops_dense.run_worklist.launches
+        kk, pk = ops_dense.run_worklist(*args, key0, None if pass_ == 0
+                                        else p_seed, **kw)
+        assert ops_dense.run_worklist.launches == before + 1
+        kp, pp = ops_dense.run_worklist_plain(
+            *args, key0, torch.full_like(key0, -1) if pass_ == 0 else p_seed,
+            **kw)
+        hk, hp = pk >= 0, pp >= 0
+        assert int(hp.sum()) > 0
+        assert torch.equal(hk, hp)
+        tk = ops_dense._t_from_keys(kk[hk], bits)
+        tp = ops_dense._t_from_keys(kp[hk], bits)
+        torch.testing.assert_close(tk, tp, rtol=2e-6, atol=0)
+        same_key = kk == kp
+        assert torch.equal(pk[same_key], pp[same_key])
+        # Second pass: seed with the first pass's keys over half the
+        # blocks, sweep the other half.
+        key0, p_seed = kk, pk
+        half = tids.shape[0] // 2
+        args = (tids[half:].clone(), cids[half:].clone()) + args[2:]
+
+
+@pytest.mark.parametrize("TILE", [8, 100, 512])
+@pytest.mark.parametrize("SUB", [1, 4])
+@pytest.mark.parametrize("C", [64, 256, 512])
+def test_occlusion_sweep_kernel_matches_plain(cuda, C, SUB, TILE):
+    """K4 against its plain version: equal occluders on every row."""
+    scene = _worklist_scene(C, SUB, cuda)
+    rays = _blobby_rays(1000, 5, cuda)
+    tids, cids, phi, tmin, _, TILE = _worklist(scene, rays, TILE)
+    tmax = torch.full_like(tmin, float("inf"))
+    tmax[::3] = 2.6          # short rays: some free, some occluded
+    before = ops_dense.run_occlusion.launches
+    kw = dict(TILE=TILE, C=C, SUB=SUB)
+    got = ops_dense.run_occlusion(tids, cids, phi, scene.tri_feats, tmin,
+                                  tmax, **kw)
+    assert ops_dense.run_occlusion.launches == before + 1
+    ref = ops_dense.run_occlusion_plain(tids, cids, phi, scene.tri_feats,
+                                        tmin, tmax, **kw)
+    assert 0 < int((ref >= 0).sum()) < ref.numel()
+    assert torch.equal(got, ref)
+
+
+def test_worklist_queries_on_card_match_cpu_and_oracle(cuda):
+    """closest_hit and any_hit below REGROUP_MIN_RAYS go through K1, K3 and
+    K4, agree with the same query on the CPU and with the oracle."""
+    tris_cpu = rt.displaced_grid_mesh(n=40, device="cpu")
+    scene_cpu = rt.build_dense(tris_cpu, cluster_size=128, sub_chunks=4)
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=128, sub_chunks=4)
+    rays_cpu = _incoherent_rays(1024, 6, "cpu")
+    rays = _incoherent_rays(1024, 6, cuda)
+    counts = (ops_dense.phase_a.launches, ops_dense.run_worklist.launches,
+              ops_dense.run_occlusion.launches,
+              ops_regroup.run_regrouped.launches)
+    got = rt.closest_hit(scene, rays)
+    occ = rt.any_hit(scene, rays)
+    assert (ops_dense.phase_a.launches, ops_dense.run_worklist.launches,
+            ops_dense.run_occlusion.launches,
+            ops_regroup.run_regrouped.launches) == \
+        (counts[0] + 2, counts[1] + 1, counts[2] + 1, counts[3])
+    ref = rt.closest_hit(scene_cpu, rays_cpu)
+    assert torch.equal(got.hit.cpu(), ref.hit)
+    torch.testing.assert_close(got.t.cpu(), ref.t, rtol=2e-5, atol=2e-6)
+    assert torch.equal(occ.hit.cpu(), rt.any_hit(scene_cpu, rays_cpu).hit)
+    assert torch.equal(occ.hit, got.hit)
+    oracle = rt.closest_hit_brute(scene.prims, rays)
+    assert torch.equal(oracle.hit, got.hit)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -149,6 +265,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                   C=16)
     with pytest.raises(ValueError):
         ops_regroup.run_regrouped(subs, cid, tbl, feats, G=8, SPB=2, C=18)
+    ids = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    phi = torch.zeros((2048, 16), device=cuda)
+    rows = torch.zeros((2048,), device=cuda)
+    keys = torch.zeros((2048,), dtype=torch.int32, device=cuda)
+    sb = torch.zeros((2, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="TILE"):
+        ops_dense.run_worklist(ids, ids, phi, feats, sb, rows, keys,
+                               TILE=2048, C=16, SUB=1)
+    with pytest.raises(ValueError, match="C/SUB"):
+        ops_dense.run_occlusion(ids, ids, phi, feats, rows, rows, TILE=512,
+                                C=16, SUB=8)
+    with pytest.raises(TypeError):
+        ops_dense.run_occlusion(ids.long(), ids, phi, feats, rows, rows,
+                                TILE=512, C=16)
 
 
 def test_kernel_build_is_cached(cuda):

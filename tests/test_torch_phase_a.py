@@ -18,17 +18,20 @@ from raycore_tpu.scene import mesh as j_mesh
 from raycore_tpu_torch.ops import dense as t_pd
 from raycore_tpu_torch.ops import regroup as t_pr
 from raycore_tpu_torch.scene import mesh as t_mesh
-from torch_parity import assert_ray_features_close, bits, np_, ray_arrays
+from torch_parity import (CPU, assert_ray_features_close, bits, np_,
+                          ray_arrays)
 
 
 def _scenes(C=128, blobby=False):
     if blobby:
         return (j_dense.build_dense(j_mesh.blobby_mesh(64, 64),
                                     cluster_size=C),
-                rt.build_dense(t_mesh.blobby_mesh(64, 64), cluster_size=C))
+                rt.build_dense(t_mesh.blobby_mesh(64, 64, device=CPU),
+                               cluster_size=C))
     return (j_dense.build_dense(j_mesh.displaced_grid_mesh(n=40),
                                 cluster_size=C),
-            rt.build_dense(t_mesh.displaced_grid_mesh(n=40), cluster_size=C))
+            rt.build_dense(t_mesh.displaced_grid_mesh(n=40, device=CPU),
+                           cluster_size=C))
 
 
 def _prepared(R, seed, coherent, zero_dirs):

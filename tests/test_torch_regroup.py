@@ -19,9 +19,10 @@ from raycore_tpu.accel.brute import closest_hit_brute as j_brute
 from raycore_tpu.ops import pallas_regroup as j_pr
 from raycore_tpu.scene import mesh as j_mesh
 from raycore_tpu_torch import convert
+from raycore_tpu_torch.ops import dense as t_pd
 from raycore_tpu_torch.ops import regroup as t_pr
 from raycore_tpu_torch.scene import mesh as t_mesh
-from torch_parity import (check_hits, jax_rays, jax_scene_arrays, np_,
+from torch_parity import (CPU, check_hits, jax_rays, jax_scene_arrays, np_,
                           ray_arrays, torch_rays)
 
 INT32_MAX = 0x7FFFFFFF
@@ -31,10 +32,12 @@ def _scenes(C=128, blobby=False):
     if blobby:
         return (j_dense.build_dense(j_mesh.blobby_mesh(64, 64),
                                     cluster_size=C),
-                rt.build_dense(t_mesh.blobby_mesh(64, 64), cluster_size=C))
+                rt.build_dense(t_mesh.blobby_mesh(64, 64, device=CPU),
+                               cluster_size=C))
     return (j_dense.build_dense(j_mesh.displaced_grid_mesh(n=40),
                                 cluster_size=C),
-            rt.build_dense(t_mesh.displaced_grid_mesh(n=40), cluster_size=C))
+            rt.build_dense(t_mesh.displaced_grid_mesh(n=40, device=CPU),
+                           cluster_size=C))
 
 
 def _blobby_rays(R=1024, seed=3):
@@ -196,7 +199,7 @@ def test_diagonal_edge_cracks_match_jax():
 def test_query_on_scene_converted_from_jax():
     """The query alone, on tables the JAX package built."""
     js, _ = _scenes(C=64)
-    scene = convert.dense_scene_from_numpy(jax_scene_arrays(js))
+    scene = convert.dense_scene_from_numpy(jax_scene_arrays(js), device=CPU)
     o, d = ray_arrays(R=1024, seed=9)
     got = rt.closest_hit(scene, torch_rays(o, d))
     check_hits(j_pr.closest_hit_regrouped(js, jax_rays(o, d), passes=1),
@@ -209,7 +212,8 @@ def test_dispatch_ragged_batch_and_batch_shape():
     tr = torch_rays(o, d, t_min=0.05)
     res = rt.closest_hit(ts, tr)
     check_hits(j_brute(js.prims, jax_rays(o, d, t_min=0.05)), res)
-    direct = t_pr.closest_hit_regrouped(ts, tr, tile=2048)
+    # 777 rays are below REGROUP_MIN_RAYS: dispatch takes the worklist.
+    direct = t_pd.closest_hit_dense_pallas_auto(ts, tr, tile=512)
     assert torch.equal(direct.prim_idx, res.prim_idx)
     r2 = rt.Ray.create(tr.o[:750].reshape(25, 30, 3),
                        tr.d[:750].reshape(25, 30, 3))
@@ -234,13 +238,15 @@ def test_unported_options_raise():
         t_pr.closest_hit_regrouped(ts, tr, passes=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_pr.closest_hit_regrouped(ts, tr, passes="auto")
-    with pytest.raises(NotImplementedError, match="any_hit"):
-        t_pr.closest_hit_regrouped(ts, tr, payload="occlusion")
     with pytest.raises(ValueError):
         t_pr.closest_hit_regrouped(ts, tr, payload="fat")
-    sub4 = rt.build_dense(t_mesh.displaced_grid_mesh(n=8), cluster_size=32,
-                          sub_chunks=4)
+    # The regrouped engine takes only sub_chunks == 1 scenes, as in the
+    # reference; closest_hit sends the others to the tile worklist.
+    sub4 = rt.build_dense(t_mesh.displaced_grid_mesh(n=8, device=CPU),
+                          cluster_size=32, sub_chunks=4)
     with pytest.raises(ValueError):
-        rt.closest_hit(sub4, tr)
+        t_pr.closest_hit_regrouped(sub4, tr)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt.closest_hit(object(), tr)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.any_hit(object(), tr)

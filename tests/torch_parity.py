@@ -14,6 +14,8 @@ import raycore_tpu as rc
 import raycore_tpu_torch as rt
 from test_pallas_regroup import _check as check_hits  # noqa: F401
 
+CPU = torch.device("cpu")   # the port's entry points default to the card
+
 torch.set_num_threads(2)
 # Full float32 in any matrix product the plain versions run on a card.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -90,3 +92,83 @@ def assert_ray_features_close(ref, got, o, d):
     mag = (ao[:, [1, 2, 0]] * ad[:, [2, 0, 1]]
            + ao[:, [2, 0, 1]] * ad[:, [1, 2, 0]])
     assert (np.abs(got[:, 3:6] - ref[:, 3:6]) <= 2.0 ** -22 * mag).all()
+
+
+def worklist_tie_rtol(bits: int) -> float:
+    """Relative t tie bound of the tile worklist: its keys keep 23 - bits
+    mantissa bits of t, so two hits within 2^-(23 - bits) relative of each
+    other tie on the key and the smaller lane wins; the exact finalize then
+    reports that triangle's own t. Plus the 2e-6 of the engine contract."""
+    return 2.0 ** -(23 - bits) + 2e-6
+
+
+def check_worklist_hits(ref, got, bits: int):
+    """``check_hits`` with the worklist's widened bound: equal hit masks;
+    t within rtol max(2e-5, worklist_tie_rtol(bits)) and atol 2e-6 where
+    both hit; a differing prim only as a t tie within
+    worklist_tie_rtol(bits); most prims equal."""
+    tie = worklist_tie_rtol(bits)
+    h = np_(ref.hit)
+    assert np.array_equal(h, np_(got.hit))
+    rt_, gt = np_(ref.t)[h], np_(got.t)[h]
+    np.testing.assert_allclose(gt, rt_, rtol=max(2e-5, tie), atol=2e-6)
+    pm = np_(ref.prim_idx)[h] == np_(got.prim_idx)[h]
+    assert not pm.size or pm.mean() >= 0.7
+    if not pm.all():
+        rel = np.abs(gt[~pm] - rt_[~pm]) / np.maximum(rt_[~pm], 1e-6)
+        assert rel.max() < tie
+
+
+def pallas_dense_scenes(blobby=False, SUB=1, instances=0):
+    """(JAX scene, port scene) at tests/test_pallas_dense.py's sizes:
+    ``displaced_grid_mesh(n=32)`` at C=64 or ``blobby_mesh(64, 64)`` at
+    C=128; with ``instances`` > 0 every triangle gets instance slot
+    (index % instances)."""
+    from raycore_tpu.accel import dense as j_dense
+    from raycore_tpu.scene import mesh as j_mesh
+    from raycore_tpu_torch.scene import mesh as t_mesh
+    if blobby:
+        jm, tm = j_mesh.blobby_mesh(64, 64), \
+            t_mesh.blobby_mesh(64, 64, device=CPU)
+        C = 128
+    else:
+        kw = dict(n=32, extent=2.0, amplitude=0.3)
+        jm, tm = j_mesh.displaced_grid_mesh(**kw), \
+            t_mesh.displaced_grid_mesh(**kw, device=CPU)
+        C = 64
+    inst = (np.arange(tm.vertices.shape[0], dtype=np.int32) % instances
+            if instances else None)
+    return (j_dense.build_dense(jm, cluster_size=C, sub_chunks=SUB,
+                                instance_of=inst),
+            rt.build_dense(tm, cluster_size=C, sub_chunks=SUB,
+                           instance_of=inst))
+
+
+def jax_tile_padded(a, fill, TILE, column=False):
+    """A port worklist operand as the JAX kernels take it: a trailing dummy
+    tile of ``fill`` rows (the JAX kernels treat it as padding; the port
+    has none), as an (R, 1) column when ``column``."""
+    a = np_(a)
+    a = np.concatenate([a, np.full((TILE,) + a.shape[1:], fill, a.dtype)])
+    return jnp.asarray(a[:, None] if column else a)
+
+
+def jax_worklist_args(tids, cids, phi, tmin, key0, pair0, TILE):
+    """The port's worklist operands as JAX's ``_run_worklist`` takes them
+    (zero features, t_min 0, key 0 and pair -1 in the dummy tile)."""
+    return (jnp.asarray(np_(tids)), jnp.asarray(np_(cids)),
+            jax_tile_padded(phi, 0.0, TILE),
+            jax_tile_padded(tmin, 0.0, TILE, column=True),
+            jax_tile_padded(key0, 0, TILE, column=True),
+            jax_tile_padded(pair0, -1, TILE, column=True))
+
+
+def spy(monkeypatch, module, name, calls):
+    """Record (name, keyword arguments) of every call of ``module.name``
+    into ``calls``; the call still runs."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        calls.append((name, kw))
+        return fn(*a, **kw)
+    monkeypatch.setattr(module, name, wrapped)
