@@ -10,13 +10,15 @@ count set to 0 just before it and read just after:
 
   1. environment: card name and power limit (nvidia-smi), torch, CUDA and
      nvcc versions; no CUDA device is an error (there is no CPU fallback);
-  2. build the kernels (K1-K4) from raycore_tpu_torch/csrc;
+  2. build the kernels (K1-K6) from raycore_tpu_torch/csrc;
   3. build the headline scene (displaced grid n=707, 999,698 triangles,
      C=256), cold and warm;
   4. kernel K1 (phase A) against its plain version on the headline query's
      stats and bounds: bitwise equal;
   5. kernel K2 (regroup sweep) against its plain version on the headline
-     query's blocks, within the stated tolerance;
+     query's blocks, within the stated tolerance; K5 (packed sweep) at one
+     sub-chunk per cluster and one block per CTA on the same blocks,
+     bitwise equal to K2 and timed beside it;
   6. the headline query, closest_hit on 1024^2 Morton-ordered downward rays
      (the regrouped engine, K1 and K2): median of 5 runs, both kernels
      launched, hit_frac 1.0 at bench.py's 4 decimals and no miss off the
@@ -38,12 +40,25 @@ count set to 0 just before it and read just after:
  11. shadow rays from the 512^2 and 1024^2 headline hit points toward a
      light: any_hit on 262,144 rays takes the worklist occlusion (K4), on
      1,048,576 the regrouped occlusion (K2); hit masks against the
-     oracle, and every occluder checked as a genuine intersection.
+     oracle, and every occluder checked as a genuine intersection;
+ 12. the 1024^2 headline rays on phase 10's sub_chunks=4 scene, which
+     dispatch sends to the packed engine (K1 and K5, C_eff = 64): the
+     query's median time, no miss off the x == y line, phase 6's
+     regrouped result ray for ray (equal hit masks, t within 2e-6
+     relative, a differing prim only as such a tie; the count of rays
+     bitwise identical in hit, t and prim) and an oracle sample;
+ 13. closest_hit_packed on the sub_chunks=1 headline scene (C_eff = C =
+     256) against phase 6's result in the same way;
+ 14. the dense brute-force sweep (K6), closest_hit_brute_pallas on a
+     65,024-triangle sphere and 512^2 pinhole rays: bit for bit against
+     its plain version on a 16,384-ray subset and against the oracle on
+     a 4096-ray sample; its bound from the tests this data needs (each
+     test stops once u, then v, fails).
 
-Every query path (phases 6 and 8-11) also holds the kernels it launched
+Every query path (phases 6 and 8-14) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
-its phase-A inputs, and its sweep kernel (K2, K3 or K4) on its own
-blocks.
+its phase-A inputs, and its sweep kernel (K2-K6) on its own blocks or
+rays. Every kernel that a path does not name must not launch on it.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -103,6 +118,21 @@ TEST_FLOPS = 80
 # One slab test of a ray against a sub-chunk's box: per axis two
 # differences and two products (the min/max are not counted).
 SLAB_FLOPS = 12
+# The scalar Möller–Trumbore test of the dense sweep (K6), its edges
+# computed once per triangle, stops once u (then v) fails. A cross product
+# is 3 products and 3 fused multiply-adds (9 FLOP), a 3-term dot 1 product
+# and 2 fused multiply-adds (5 FLOP). Every test runs up to u: d x e2, det,
+# the reciprocal, o - v0 (3), and u's dot and product. A test that passes
+# u adds (o - v0) x e1, v's dot and product and u + v; one that passes v
+# adds t's dot and product. 46 FLOP in all.
+BRUTE_U_FLOPS = 9 + 5 + 1 + 3 + 5 + 1
+BRUTE_V_FLOPS = 9 + 5 + 1 + 1
+BRUTE_T_FLOPS = 5 + 1
+# The dense sweep's cell: sphere_mesh(n_theta, n_phi) (65,024 triangles),
+# a BRUTE_SIDE^2 pinhole view, and the subset its plain version checks.
+BRUTE_SPHERE = (128, 256)
+BRUTE_SIDE = 512
+BRUTE_SUBSET = 16384
 
 
 def say(phase, msg):
@@ -301,6 +331,7 @@ def main():
                          "run only on the card")
     import raycore_tpu_torch as rt
     from raycore_tpu_torch.kernels import _build
+    from raycore_tpu_torch.ops import brute as ops_brute
     from raycore_tpu_torch.ops import dense as ops_dense
     from raycore_tpu_torch.ops import regroup as ops_regroup
 
@@ -367,31 +398,48 @@ def main():
                              (po, pd, ptmin, ptmax), TILE, G, SPB)
     n_blocks, k2_err = k2["blocks"], k2["err"]
     say(5, k2["desc"])
-    k2_ms = cuda_ms(lambda: ops_regroup.run_regrouped(*k2["args"],
-                                                      **k2["kw"]), 10)
-    k2_plain_ms = cuda_ms(lambda: ops_regroup.run_regrouped_plain(
-        *k2["args"], **k2["kw"]), 3)
+    k2_ms = cuda_ms(k2["run"], 10)
+    k2_plain_ms = cuda_ms(k2["run_plain"], 3)
     k2_bound = k2["bound"]
     say(5, f"K2 kernel {k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms bound "
            f"{k2_bound[0]:.3f} ms ({k2_bound[1]})")
+    # K5 computes K2's function at one sub-chunk per cluster: on K2's own
+    # blocks, one sub-block of SPB subgroups per CTA, it must give K2's
+    # bits; its time beside K2's says whether one kernel could serve both.
+    k5_as_k2 = lambda: ops_regroup.run_packed(
+        *k2["args"], G=G, SPB_sub=SPB, PACKS=1, C_eff=scene.cluster_size,
+        SUBC=1)
+    for got, want, name in zip(k5_as_k2(), k2["out"], ("key", "pair")):
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 at PACKS=1 on K2's blocks: "
+                                 f"{int((got != want).sum())} {name}s differ "
+                                 f"from K2's")
+    # Interleaved: K2, K5, K5, K2.
+    t_k2a, t_k5a, t_k5b, t_k2b = (cuda_ms(f, 10) for f in (
+        k2["run"], k5_as_k2, k5_as_k2, k2["run"]))
+    say(5, f"K5 packed_sweep on K2's blocks (SUBC 1, C_eff {scene.cluster_size}"
+           f", SPB_sub {SPB}, PACKS 1): bitwise equal to K2; K2 {t_k2a:.3f} / "
+           f"{t_k2b:.3f} ms, K5 {t_k5a:.3f} / {t_k5b:.3f} ms")
     del k2
 
     counters = {"phase_a": ops_dense.phase_a,
                 "regroup_sweep": ops_regroup.run_regrouped,
                 "worklist_sweep": ops_dense.run_worklist,
-                "occlusion_sweep": ops_dense.run_occlusion}
+                "occlusion_sweep": ops_dense.run_occlusion,
+                "packed_sweep": ops_regroup.run_packed,
+                "brute_sweep": ops_brute.run_brute}
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
 
-    def read_counts(what, want, none):
+    def read_counts(what, want):
         """The launch counts since zero_counts(): every kernel in ``want``
-        must have launched and none in ``none``."""
+        must have launched and no other."""
         got = {k: fn.launches for k, fn in counters.items()}
-        if any(got[k] == 0 for k in want) or any(got[k] for k in none):
-            raise AssertionError(f"{what}: launches {got}, expected "
-                                 f"{want} > 0 and {none} == 0")
+        if any((got[k] > 0) != (k in want) for k in got):
+            raise AssertionError(f"{what}: launches {got}, expected {want} "
+                                 f"> 0 and every other kernel 0")
         return got
 
     # 6. The headline query through the public entry point.
@@ -408,8 +456,7 @@ def main():
 
     q_ms = cuda_ms(query, 5)
     launches = read_counts("headline closest_hit",
-                           ["phase_a", "regroup_sweep"],
-                           ["worklist_sweep", "occlusion_sweep"])
+                           ["phase_a", "regroup_sweep"])
     hit_frac = float(res.hit.float().mean())
     # The rays with x == y run exactly along the grid cells' diagonal
     # edges, where neither the exact oracle nor the featurized test (whose
@@ -435,27 +482,16 @@ def main():
     # the x == y line. Hit masks may differ only on that line, where
     # neither test is watertight.
     rng = np.random.default_rng(SEED)
-    pick = np.union1d(rng.choice(R0, 4096, replace=False),
-                      torch.nonzero(diag).squeeze(1).cpu().numpy())
-    idx = torch.as_tensor(pick, device=dev)
-    sample = rt.Ray.create(o[idx], d[idx])
-    ref = rt.closest_hit_brute(scene.prims, sample)
-    n_hit, n_tie, only_ref, only_port = check_hits(
-        ref, res.map(lambda a: a[idx]), "headline", edge=diag[idx],
-        max_only_ref=DIAG_PORT_MISSES_MAX,
-        max_only_got=DIAG_ORACLE_MISSES_MAX)
-    say(7, f"headline sample vs brute oracle: {idx.numel()} rays "
-           f"({int(diag[idx].sum())} on the x == y line); {n_hit} hits "
-           f"agree, {n_tie} prim ties; on the line {only_ref} hit only in "
-           f"the oracle (at most {DIAG_PORT_MISSES_MAX}) and {only_port} "
-           f"only in the port (at most {DIAG_ORACLE_MISSES_MAX})")
+    oracle_sample_phase(7, rt, scene, o, d, res, diag, 2e-6, rng)
     # A light 45 degrees up. The heightfield's slopes stay below 2, so a
     # steeper light (0.4, 0.3, 1.0) shadows no point of it and would leave
     # the occlusion checks without an occluded ray.
     light = torch.tensor([0.4, 0.3, 0.5], device=dev)
     light = light / light.norm()
     shadow_1m = shadow_rays(rt, res, o, d, light)
-    del res, ref
+    # Phases 12 and 13 hold the packed engine against this result.
+    head = (res.hit.clone(), res.t.clone(), res.prim_idx.clone())
+    del res
 
     # 8. Depth-complex scene with incoherent rays: dispatch sends its
     # 262,144 rays to the tile worklist.
@@ -479,8 +515,7 @@ def main():
     torch.cuda.synchronize()
     b_ms = (time.perf_counter() - t) * 1e3
     b_launches = read_counts("blobby closest_hit",
-                             ["phase_a", "worklist_sweep"],
-                             ["regroup_sweep", "occlusion_sweep"])
+                             ["phase_a", "worklist_sweep"])
     bidx = torch.as_tensor(rng.choice(Rb, 4096, replace=False), device=dev)
     bref = rt.closest_hit_brute(bscene.prims, rt.Ray.create(
         brays.o[bidx], brays.d[bidx]))
@@ -516,8 +551,7 @@ def main():
     res5 = rt.closest_hit(scene, rays5)
     torch.cuda.synchronize()
     launches5 = read_counts("512^2 closest_hit",
-                            ["phase_a", "worklist_sweep"],
-                            ["regroup_sweep", "occlusion_sweep"])
+                            ["phase_a", "worklist_sweep"])
     k3 = worklist_sweep_phase(9, ops_dense, scene, rays5)
     w_ms = cuda_ms(lambda: rt.closest_hit(scene, rays5), 5)
     diag5 = o5[:, 0] == o5[:, 1]
@@ -529,8 +563,9 @@ def main():
            f"line); launches {launches5}")
     if off_diag5:
         raise AssertionError(f"512^2: {off_diag5} misses off the x == y line")
-    worklist_oracle_phase(9, rt, scene, o5, d5, res5, diag5, k3["bits"],
-                          np.random.default_rng(SEED + 9))
+    oracle_sample_phase(9, rt, scene, o5, d5, res5, diag5,
+                        worklist_tie_rtol(k3["bits"]),
+                        np.random.default_rng(SEED + 9))
 
     # 10. The worklist on the headline mesh with sub_chunks=4.
     scene4 = rt.build_dense(mesh, cluster_size=256, sub_chunks=4)
@@ -538,16 +573,16 @@ def main():
     res4 = rt.closest_hit(scene4, rays5)
     torch.cuda.synchronize()
     launches4 = read_counts("sub_chunks=4 closest_hit",
-                            ["phase_a", "worklist_sweep"],
-                            ["regroup_sweep", "occlusion_sweep"])
+                            ["phase_a", "worklist_sweep"])
     k3s = worklist_sweep_phase(10, ops_dense, scene4, rays5)
     w4_ms = cuda_ms(lambda: rt.closest_hit(scene4, rays5), 5)
     say(10, f"closest_hit {R5} rays, sub_chunks=4: {w4_ms:.3f} ms median of "
             f"5 ({R5 / w4_ms / 1e3:.3f} Mrays/s), {k3s['blocks']} blocks; "
             f"launches {launches4}")
-    worklist_oracle_phase(10, rt, scene4, o5, d5, res4, diag5, k3s["bits"],
-                          np.random.default_rng(SEED + 10))
-    del scene4, res4
+    oracle_sample_phase(10, rt, scene4, o5, d5, res4, diag5,
+                        worklist_tie_rtol(k3s["bits"]),
+                        np.random.default_rng(SEED + 10))
+    del res4
 
     # 11. Shadow rays toward a light from the 512^2 and 1024^2 hit points.
     shadow_5 = shadow_rays(rt, res5, o5, d5, light)
@@ -556,15 +591,13 @@ def main():
     # version on its own operands: K4 on the worklist any_hit builds, K2 on
     # the regrouped blocks of the same rays with t_min forced to 0.
     k4 = None
-    for name, srays, want, none in (
-            ("512^2", shadow_5, ["phase_a", "occlusion_sweep"],
-             ["regroup_sweep", "worklist_sweep"]),
-            ("1024^2", shadow_1m, ["phase_a", "regroup_sweep"],
-             ["worklist_sweep", "occlusion_sweep"])):
+    for name, srays, want in (
+            ("512^2", shadow_5, ["phase_a", "occlusion_sweep"]),
+            ("1024^2", shadow_1m, ["phase_a", "regroup_sweep"])):
         zero_counts()
         occ = rt.any_hit(scene, srays)
         torch.cuda.synchronize()
-        counts = read_counts(f"{name} any_hit", want, none)
+        counts = read_counts(f"{name} any_hit", want)
         a_ms = cuda_ms(lambda: rt.any_hit(scene, srays), 5)
         if counts["occlusion_sweep"]:
             k4 = occlusion_sweep_phase(ops_dense, scene, srays)
@@ -607,6 +640,37 @@ def main():
                 f"differences, all near the surface ({n_near} near-surface "
                 f"rays; at most {NEAR_SURFACE_FLIPS_MAX})")
 
+    # 12. The packed engine on the headline rays: the headline mesh built
+    # with sub_chunks=4 (C_eff = 64), which dispatch sends to
+    # closest_hit_packed (K1 and K5).
+    zero_counts()
+    res_p = rt.closest_hit(scene4, rays)
+    torch.cuda.synchronize()
+    launches_p = read_counts("packed closest_hit",
+                             ["phase_a", "packed_sweep"])
+    k5 = packed_phase(12, rt, ops_dense, ops_regroup, scene4, rays,
+                      lambda: rt.closest_hit(scene4, rays), res_p, head,
+                      diag, launches_p)
+    oracle_sample_phase(12, rt, scene4, o, d, res_p, diag, 2e-6,
+                        np.random.default_rng(SEED + 12))
+    del scene4, res_p
+
+    # 13. The packed engine at cluster granularity (C_eff = C = 256): its
+    # 40 KB sub-cluster slices, staged in four lane chunks.
+    zero_counts()
+    res_c = ops_regroup.closest_hit_packed(scene, rays)
+    torch.cuda.synchronize()
+    launches_c = read_counts("packed closest_hit, sub_chunks=1",
+                             ["phase_a", "packed_sweep"])
+    packed_phase(13, rt, ops_dense, ops_regroup, scene, rays,
+                 lambda: ops_regroup.closest_hit_packed(scene, rays), res_c,
+                 head, diag, launches_c)
+    del res_c, head
+
+    # 14. The dense brute-force sweep (K6) on a 65,024-triangle sphere, the
+    # scale ops/pallas_brute.py names ("meshes up to ~64K triangles").
+    k6 = brute_phase(14, rt, ops_brute, dev, read_counts, zero_counts)
+
     kernels = [
         {"name": "phase_a", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/phase_a.cu",
@@ -633,6 +697,20 @@ def main():
          "launches": k4["launches"], "max_abs_err": k4["err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound"][0], "bound_by": k4["bound"][1],
+         "library_ms": None},
+        {"name": "packed_sweep", "route": "cuda",
+         "source": "raycore_tpu_torch/csrc/packed_sweep.cu",
+         "replaces": "raycore_tpu/ops/pallas_regroup.py:455",
+         "launches": launches_p["packed_sweep"], "max_abs_err": k5["err"],
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound"][0], "bound_by": k5["bound"][1],
+         "library_ms": None},
+        {"name": "brute_sweep", "route": "cuda",
+         "source": "raycore_tpu_torch/csrc/brute_sweep.cu",
+         "replaces": "raycore_tpu/ops/pallas_brute.py:34",
+         "launches": k6["launches"], "max_abs_err": k6["err"],
+         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1],
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -662,30 +740,45 @@ def phase_a_check(what, ops_dense, scene, rows, TILE):
     return stats, bounds, ek, err
 
 
-def regroup_sweep_check(what, ops_regroup, scene, rows, TILE, G, SPB):
-    """K2 against its plain version on the blocks the regrouped stage 1
-    builds from ``rows`` (padded to whole tiles); the bound of that sweep.
-    Returns a dict: the kernel's arguments, blocks, error, bound and a
-    description."""
-    block_cid, block_subs, tbl, counts = ops_regroup._stage1_cm_core(
-        scene, *rows, TILE, G, SPB)
-    C = scene.cluster_size
+def sweep_check(what, stage1, kernel, plain, scene, rows, TILE, G, SPB,
+                C_eff):
+    """A closest-hit sweep kernel (K2 or K5) against its plain version on
+    the blocks ``stage1`` builds from ``rows`` (padded to whole tiles) in
+    blocks of SPB subgroups; the bound of that sweep: each row tests C_eff
+    lanes, and the table read once is the 10 nonzero feature rows of each
+    distinct (sub-)cluster's slice. ``kernel`` and ``plain`` take
+    (block_subs, block_cid, tbl, feats). Returns a dict: the kernel and its
+    plain version on these blocks (``run``, ``run_plain``), the kernel's
+    output and arguments, blocks, error, bound and a description."""
+    block_cid, block_subs, tbl, counts = stage1(scene, *rows, TILE, G, SPB)
     args = (block_subs, block_cid, tbl, scene.tri_feats)
-    kw = dict(G=G, SPB=SPB, C=C)
-    kk, pk = ops_regroup.run_regrouped(*args, **kw)
-    kp, pp = ops_regroup.run_regrouped_plain(*args, **kw)
+    kk, pk = kernel(*args)
+    kp, pp = plain(*args)
     torch.cuda.synchronize()
     n, plain_hits, flips, pair_diff, err, rel = compare_sweeps(
         what, kk, pk, kp, pp, 0)
     b = bound(nbytes(block_subs, block_cid, tbl, kk, pk)
-              + table_bytes(block_cid, C), n * C * TEST_FLOPS)
-    desc = (f"{what} regroup_sweep: {block_cid.shape[0]} blocks "
-            f"({counts[0]} coarse pairs, {counts[1]} subgroup pairs), {n} "
-            f"rows, {plain_hits} plain hits; hit-mask flips {flips}, pair "
+              + table_bytes(block_cid, C_eff), n * C_eff * TEST_FLOPS)
+    pairs = ", ".join(f"{c} {w} pairs" for c, w in zip(
+        counts[:-1], ("coarse", "subgroup", "sub-cluster")))
+    desc = (f"{what}: {block_cid.shape[0]} blocks ({pairs}), {n} rows, "
+            f"{plain_hits} plain hits; hit-mask flips {flips}, pair "
             f"differences {pair_diff} (0 where the keys are equal), max rel "
             f"t {rel:.3g}")
-    return dict(args=args, kw=kw, blocks=block_cid.shape[0], err=err,
+    return dict(run=lambda: kernel(*args), run_plain=lambda: plain(*args),
+                out=(kk, pk), args=args, blocks=block_cid.shape[0], err=err,
                 bound=b, desc=desc)
+
+
+def regroup_sweep_check(what, ops_regroup, scene, rows, TILE, G, SPB):
+    """K2 against its plain version on the regrouped stage 1's blocks."""
+    C = scene.cluster_size
+    kw = dict(G=G, SPB=SPB, C=C)
+    return sweep_check(
+        f"{what} regroup_sweep", ops_regroup._stage1_cm_core,
+        lambda *a: ops_regroup.run_regrouped(*a, **kw),
+        lambda *a: ops_regroup.run_regrouped_plain(*a, **kw),
+        scene, rows, TILE, G, SPB, C)
 
 
 def regroup_occlusion_check(ops_dense, ops_regroup, rt, scene, rays):
@@ -746,25 +839,28 @@ def worklist_sweep_phase(phase, ops_dense, scene, rays, plain_reps=3):
                 bound=b)
 
 
-def worklist_oracle_phase(phase, rt, scene, o, d, res, diag, bits, rng):
+def oracle_sample_phase(phase, rt, scene, o, d, res, diag, tie, rng):
     """A 4096-ray sample plus every ray on the x == y line against the
-    oracle, with the worklist's tie bound; masks may differ only on the
-    line, as in phase 7."""
+    oracle, with the relative t tie bound ``tie`` (2e-6 for the engines
+    whose keys are full t bits, ``worklist_tie_rtol`` for the worklist);
+    hit masks may differ only on the line, where neither test is
+    watertight: at most DIAG_PORT_MISSES_MAX rays that only the oracle
+    hits and DIAG_ORACLE_MISSES_MAX that only the port hits."""
     R = o.shape[0]
     pick = np.union1d(rng.choice(R, 4096, replace=False),
                       torch.nonzero(diag).squeeze(1).cpu().numpy())
     idx = torch.as_tensor(pick, device=o.device)
     ref = rt.closest_hit_brute(scene.prims, rt.Ray.create(o[idx], d[idx]))
-    tie = worklist_tie_rtol(bits)
     n_hit, n_tie, only_ref, only_port = check_hits(
         ref, res.map(lambda a: a[idx]), f"phase {phase}", edge=diag[idx],
         max_only_ref=DIAG_PORT_MISSES_MAX,
         max_only_got=DIAG_ORACLE_MISSES_MAX, tie=tie)
     say(phase, f"sample vs brute oracle: {idx.numel()} rays "
                f"({int(diag[idx].sum())} on the x == y line), tie bound "
-               f"{tie:.3g} relative (bits {bits}); {n_hit} hits agree, "
-               f"{n_tie} prim ties; on the line {only_ref} hit only in the "
-               f"oracle and {only_port} only in the port")
+               f"{tie:.3g} relative; {n_hit} hits agree, {n_tie} prim "
+               f"ties; on the line {only_ref} hit only in the oracle (at "
+               f"most {DIAG_PORT_MISSES_MAX}) and {only_port} only in the "
+               f"port (at most {DIAG_ORACLE_MISSES_MAX})")
 
 
 def occlusion_sweep_phase(ops_dense, scene, rays):
@@ -798,6 +894,179 @@ def occlusion_sweep_phase(ops_dense, scene, rays):
     # kernel's id differs from the plain version's, else 0.
     return dict(blocks=cids.numel(), diff=diff, err=float(diff > 0), ms=ms,
                 plain_ms=plain_ms, bound=b, tests=tests)
+
+
+def packed_phase(phase, rt, ops_dense, ops_regroup, scene, rays, query, res,
+                 head, diag, launches):
+    """The packed engine's query ``query`` (result ``res``) on the
+    headline rays: K1 bitwise and K5 against their plain versions on the
+    query's own operands; the query's median time, K5's and its plain
+    version's, K5's bound; no miss off the x == y line; and the regrouped
+    headline result ``head`` (hit, t, prim) ray for ray: equal hit masks,
+    t within 2e-6 relative, a differing prim only as such a tie. Returns a
+    dict of K5's numbers."""
+    po, pd, ptmin, ptmax, R0, G, TILE = ops_regroup._padded_batch(
+        rays, 2048, 32)
+    rows = (po, pd, ptmin, ptmax)
+    phase_a_check(f"K1 (phase {phase})", ops_dense, scene, rows, TILE)
+    SPB_sub, PACKS, SUBC = 2, 8, scene.sub_chunks
+    C_eff = scene.cluster_size // SUBC
+    kw = dict(G=G, SPB_sub=SPB_sub, C_eff=C_eff, SUBC=SUBC)
+    k5 = sweep_check(
+        f"K5 packed_sweep (SUBC {SUBC}, C_eff {C_eff}, SPB_sub {SPB_sub}, "
+        f"PACKS {PACKS})", ops_regroup._stage1_packed_core,
+        lambda *a: ops_regroup.run_packed(*a, PACKS=PACKS, **kw),
+        lambda *a: ops_regroup.run_packed_plain(*a, **kw),
+        scene, rows, TILE, G, SPB_sub, C_eff)
+    ms = cuda_ms(k5["run"], 10)
+    plain_ms = cuda_ms(k5["run_plain"], 3)
+    b = k5["bound"]
+    q_ms = cuda_ms(query, 5)
+    hit_frac = float(res.hit.float().mean())
+    off_diag = int((~res.hit & ~diag).sum())
+    if off_diag:
+        raise AssertionError(f"phase {phase}: {off_diag} misses off the "
+                             f"x == y line")
+    if res.t.shape != (R0,) or not bool(torch.isfinite(res.t).all()):
+        raise AssertionError(f"phase {phase}: t is not finite or has the "
+                             f"wrong shape")
+    hh, ht, hp = head
+    if not torch.equal(hh, res.hit):
+        raise AssertionError(f"phase {phase}: {int((hh != res.hit).sum())} "
+                             f"hit-mask differences from the regrouped "
+                             f"engine")
+    trel = ((res.t - ht).abs() / ht.abs().clamp_min(1e-6))[hh]
+    prim_diff = (res.prim_idx != hp) & hh
+    if float(trel.max()) >= 2e-6:
+        raise AssertionError(f"phase {phase}: t differs from the regrouped "
+                             f"engine by rel {float(trel.max()):.3g}")
+    same = (res.t.view(torch.int32) == ht.view(torch.int32)) \
+        & (res.prim_idx == hp)
+    say(phase, f"K1 bitwise equal to plain; {k5['desc']}; kernel {ms:.3f} "
+               f"ms plain {plain_ms:.3f} ms bound {b[0]:.4f} ms ({b[1]})")
+    say(phase, f"closest_hit_packed {R0} rays: {q_ms:.2f} ms median of 5 "
+               f"({R0 / q_ms / 1e3:.3f} Mrays/s), launches {launches}; "
+               f"hit_frac {hit_frac} ({int((~res.hit).sum())} misses, none "
+               f"off the x == y line); against the regrouped engine: equal "
+               f"hit masks, max rel t {float(trel.max()):.3g}, "
+               f"{int(prim_diff.sum())} prims differ as ties, "
+               f"{int(same.sum())} of {R0} rays bitwise identical in (hit, "
+               f"t, prim)")
+    return dict(blocks=k5["blocks"], err=k5["err"], ms=ms, plain_ms=plain_ms,
+                bound=b, q_ms=q_ms)
+
+
+def pinhole_rays(side, device, dist=3.0, half=0.5):
+    """A side x side pinhole camera at (0, 0, dist) looking down -z at
+    pixel centres over [-half, half]^2 of the plane at distance 1: the
+    unit sphere's silhouette (half-width 0.354 there) with misses around
+    it. No ray has x or y = 0, so none runs along a meridian edge."""
+    s = (np.arange(side, dtype=np.float32) + 0.5) / side * 2 * half - half
+    X, Y = np.meshgrid(s, s, indexing="ij")
+    d = np.stack([X, Y, -np.ones_like(X)], -1).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(np.array([0, 0, dist], np.float32), d.shape)
+    return (torch.as_tensor(np.ascontiguousarray(o), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+
+
+def brute_tests(table, o, d, ray_chunk=256):
+    """K6's tests on this data, by how far each runs: (every (ray, table
+    column) pair, the pairs that pass u, those that then pass v). The
+    kernel stops a test once u (then v) fails, so only those go on. u and
+    v are the kernel's own bits: core.triangle's fused chains."""
+    from raycore_tpu_torch.core import triangle as tri
+    v0 = table[0:3].T
+    e1, e2 = table[3:6].T - v0, table[6:9].T - v0
+    n_u = torch.zeros((), dtype=torch.int64, device=o.device)
+    n_v = torch.zeros_like(n_u)
+    for lo in range(0, o.shape[0], ray_chunk):
+        oc, dc = o[lo:lo + ray_chunk, None], d[lo:lo + ray_chunk, None]
+        s1 = tri.cross(dc, e2)
+        inv = 1.0 / tri.dot3(s1, e1)
+        p = oc - v0
+        u = tri.dot3(p, s1) * inv
+        pass_u = (u >= 0.0) & (u <= 1.0)
+        v = tri.dot3(dc, tri.cross(p, e1)) * inv
+        n_u += pass_u.sum()
+        n_v += (pass_u & (v >= 0.0) & (u + v <= 1.0)).sum()
+    return o.shape[0] * table.shape[1], int(n_u), int(n_v)
+
+
+def brute_phase(phase, rt, ops_brute, dev, read_counts, zero_counts):
+    """closest_hit_brute_pallas on the unit sphere_mesh of BRUTE_SPHERE and
+    BRUTE_SIDE^2 pinhole rays: K6 launched; its output on the main path's
+    operands bit for bit equal to its plain version on a seeded subset of
+    BRUTE_SUBSET rays (the plain version takes seconds on all rays); the
+    whole batch equal to the oracle, bit for bit, on a 4096-ray sample.
+    Returns a dict of K6's numbers."""
+    n_theta, n_phi = BRUTE_SPHERE
+    tris = rt.sphere_mesh(n_theta=n_theta, n_phi=n_phi, device=dev)
+    T = tris.vertices.shape[0]
+    o, d = pinhole_rays(BRUTE_SIDE, dev)
+    R = o.shape[0]
+    rays = rt.Ray.create(o, d)
+    zero_counts()
+    res = rt.closest_hit_brute_pallas(tris, rays)
+    torch.cuda.synchronize()
+    launches = read_counts("closest_hit_brute_pallas", ["brute_sweep"])
+    hit_frac = float(res.hit.float().mean())
+    if not 0.2 < hit_frac < 0.8:
+        raise AssertionError(f"dense sweep hit_frac {hit_frac}: the view "
+                             f"should hold hits and misses")
+    # The kernel's operands as closest_hit_brute_pallas builds them (R is
+    # a whole number of ray tiles, so nothing is padded).
+    table = ops_brute.make_tri_table(tris)
+    args = (table, o, d, torch.zeros(R, device=dev),
+            torch.full((R,), float("inf"), device=dev))
+    got = ops_brute.run_brute(*args)
+    rng = np.random.default_rng(SEED + phase)
+    sub = torch.as_tensor(
+        np.sort(rng.choice(R, BRUTE_SUBSET, replace=False)), device=dev)
+    sub_args = [a if a is table else a[sub] for a in args]
+    out = {}
+    plain_ms = cuda_ms(lambda: out.update(
+        ref=ops_brute.run_brute_plain(*sub_args)), 1)
+    ref = out["ref"]
+    for name, g, r in zip(("t", "idx", "u", "v"), got, ref):
+        if not torch.equal(g[sub].view(torch.int32), r.view(torch.int32)):
+            raise AssertionError(
+                f"K6 {name}: {int((g[sub].view(torch.int32) != r.view(torch.int32)).sum())}"
+                f" of {sub.numel()} subset rows differ from the plain "
+                f"version")
+    err = max(float((g[sub] - r).abs().max()) for g, r in zip(got, ref))
+    ms = cuda_ms(lambda: ops_brute.run_brute(*args), 3)
+    q_ms = cuda_ms(lambda: rt.closest_hit_brute_pallas(tris, rays), 3)
+    # The oracle on a 4096-ray sample: every field bit for bit.
+    idx = torch.as_tensor(rng.choice(R, 4096, replace=False), device=dev)
+    oracle = rt.closest_hit_brute(tris, rt.Ray.create(o[idx], d[idx]))
+    for f in ("hit", "t", "barycentric", "prim_idx", "instance_idx"):
+        a, b = getattr(oracle, f), getattr(res, f)[idx]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"dense sweep {f}: {int((a != b).sum())} "
+                                 f"of 4096 sampled rays differ from the "
+                                 f"oracle")
+    # The operations this data needs: every test up to u, the rest only
+    # where u (then v) passes; the table and the rays are read once and
+    # the four outputs written once.
+    pairs, n_u, n_v = brute_tests(table, o, d)
+    full = BRUTE_U_FLOPS + BRUTE_V_FLOPS + BRUTE_T_FLOPS
+    b = bound(nbytes(*args, *got), pairs * BRUTE_U_FLOPS
+              + n_u * BRUTE_V_FLOPS + n_v * BRUTE_T_FLOPS)
+    say(phase, f"closest_hit_brute_pallas {T} tris (table "
+               f"{tuple(table.shape)}) x {R} pinhole rays: {q_ms:.3f} ms "
+               f"median of 3 ({R / q_ms / 1e3:.3f} Mrays/s), launches "
+               f"{launches}; hit_frac {hit_frac:.4f}; K6 brute_sweep bitwise "
+               f"equal to plain on {sub.numel()} subset rows, kernel "
+               f"{ms:.3f} ms, plain {plain_ms:.3f} ms on the subset, bound "
+               f"{b[0]:.4f} ms ({b[1]}; {pairs} tests, {n_u} pass u, {n_v} "
+               f"pass v; {pairs * full / PEAK_FP32_FLOPS * 1e3:.4f} ms if "
+               f"every test ran in full); 4096-ray sample bitwise equal to "
+               f"the oracle")
+    return dict(launches=launches["brute_sweep"], err=err, ms=ms,
+                plain_ms=plain_ms, bound=b, q_ms=q_ms)
 
 
 def shadow_oracle(rt, scene, rays, occ, t_occ, rng):

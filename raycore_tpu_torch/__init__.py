@@ -6,9 +6,12 @@ their tensors on the CUDA card unless the caller passes ``device="cpu"``;
 tensors then stay on their device, and a kernel wrapper launches its CUDA
 kernel for CUDA tensors and runs the kernel's plain PyTorch version for
 CPU tensors. The ported slice is ``closest_hit`` and ``any_hit`` on a
-``DenseScene``: the regrouped engine for batches of at least 2^19 rays,
-the tile worklist (``closest_hit_dense_pallas*``, ``any_hit_dense_pallas_auto``)
-for smaller batches and for scenes with sub_chunks > 1.
+``DenseScene``: for batches of at least 2^19 rays the regrouped engine
+(sub_chunks == 1) or the packed sub-cluster engine
+(``closest_hit_packed``, sub_chunks >= 2; ``any_hit`` takes the worklist
+there), and the tile worklist (``closest_hit_dense_pallas*``,
+``any_hit_dense_pallas_auto``) for smaller batches; plus the dense
+brute-force sweep for small meshes (``closest_hit_brute_pallas``).
 """
 from .core.ray import Ray
 from .core.triangle import Triangle, fast_intersect_triangle, safe_invdir
@@ -16,17 +19,22 @@ from .accel.brute import HitResult, closest_hit_brute
 from .accel.dense import DenseScene, build_dense
 from .accel.dispatch import scene_any_hit as any_hit
 from .accel.dispatch import scene_closest_hit as closest_hit
+from .ops.brute import closest_hit_brute_pallas
 from .ops.dense import (any_hit_dense_pallas_auto, closest_hit_dense_pallas,
                         closest_hit_dense_pallas_auto,
                         closest_hit_dense_pallas_topk)
-from .ops.regroup import any_hit_regrouped, closest_hit_regrouped
-from .scene.mesh import (blobby_mesh, build_triangles, displaced_grid_mesh,
+from .ops.regroup import (any_hit_regrouped, closest_hit_packed,
+                          closest_hit_regrouped)
+from .scene.mesh import (blobby_mesh, box_mesh, build_triangles,
+                         displaced_grid_mesh, plane_mesh, sphere_mesh,
                          uv_sphere)
 
 __all__ = ["Ray", "Triangle", "HitResult", "DenseScene", "build_dense",
            "closest_hit", "any_hit", "closest_hit_regrouped",
-           "any_hit_regrouped", "closest_hit_dense_pallas",
-           "closest_hit_dense_pallas_auto", "closest_hit_dense_pallas_topk",
-           "any_hit_dense_pallas_auto", "closest_hit_brute",
+           "any_hit_regrouped", "closest_hit_packed",
+           "closest_hit_dense_pallas", "closest_hit_dense_pallas_auto",
+           "closest_hit_dense_pallas_topk", "any_hit_dense_pallas_auto",
+           "closest_hit_brute", "closest_hit_brute_pallas",
            "fast_intersect_triangle", "safe_invdir", "blobby_mesh",
-           "build_triangles", "displaced_grid_mesh", "uv_sphere"]
+           "box_mesh", "build_triangles", "displaced_grid_mesh",
+           "plane_mesh", "sphere_mesh", "uv_sphere"]

@@ -53,16 +53,14 @@ def _masked_rows(tris: _tri.Triangle, idx, hit) -> _tri.Triangle:
         metadata=torch.where(hit, tris.metadata[idx], 0))
 
 
-def closest_hit_brute(tris: _tri.Triangle, rays: Ray,
-                      tri_chunk: int = 8192) -> HitResult:
-    """Closest hit by exhaustive Möller–Trumbore, ``tri_chunk`` triangles at
-    a time. Ties resolve to the lowest triangle index, as in the
-    reference's first-wins argmin."""
-    batch = rays.batch_shape
-    o = rays.o.reshape(-1, 1, 3)
-    d = rays.d.reshape(-1, 1, 3)
-    t_min = rays.t_min.reshape(-1, 1)
-    t_max = rays.t_max.reshape(-1, 1)
+def closest_over(o, d, t_min, t_max, v, tri_chunk: int = 8192):
+    """Each ray's closest hit among triangles ``v`` (T, 3, 3) by exhaustive
+    ``fast_intersect_triangle``, ``tri_chunk`` triangles at a time: the
+    smallest t wins and the lowest index among equal t. ``o``/``d`` (R, 3),
+    ``t_min``/``t_max`` (R,). Returns (hit, t, u, v, idx) of shape (R,)
+    with idx int64, each undefined where hit is False."""
+    o, d = o.reshape(-1, 1, 3), d.reshape(-1, 1, 3)
+    t_min, t_max = t_min.reshape(-1, 1), t_max.reshape(-1, 1)
     R = o.shape[0]
     dev = o.device
     inf = torch.tensor(float("inf"), device=dev)
@@ -71,7 +69,6 @@ def closest_hit_brute(tris: _tri.Triangle, rays: Ray,
     best_v = torch.zeros(R, device=dev)
     best_i = torch.zeros(R, dtype=torch.int64, device=dev)
     any_h = torch.zeros(R, dtype=torch.bool, device=dev)
-    v = tris.vertices
     for lo in range(0, v.shape[0], tri_chunk):
         vc = v[lo:lo + tri_chunk]
         hit, t, u, vv = _tri.fast_intersect_triangle(
@@ -92,6 +89,17 @@ def closest_hit_brute(tris: _tri.Triangle, rays: Ray,
         best_v = torch.where(better, take(vv), best_v)
         best_i = torch.where(better, arg + lo, best_i)
         any_h = any_h | h
+    return any_h, best_t, best_u, best_v, best_i
+
+
+def closest_hit_brute(tris: _tri.Triangle, rays: Ray,
+                      tri_chunk: int = 8192) -> HitResult:
+    """Closest hit by exhaustive Möller–Trumbore, ``tri_chunk`` triangles at
+    a time. Ties resolve to the lowest triangle index, as in the
+    reference's first-wins argmin."""
+    batch = rays.batch_shape
+    any_h, best_t, best_u, best_v, best_i = closest_over(
+        rays.o, rays.d, rays.t_min, rays.t_max, tris.vertices, tri_chunk)
     bary = torch.where(any_h[:, None],
                        torch.stack([1.0 - best_u - best_v, best_u, best_v],
                                    -1), 0.0)

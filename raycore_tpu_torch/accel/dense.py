@@ -78,9 +78,17 @@ def pack_prims_hot(tris: Triangle, orig_idx=None) -> torch.Tensor:
 def _face_normals(v):
     """Unit face normal per triangle, normalize(cross(v1-v0, v2-v0)), with a
     zero-length normal left at 0, in plain float32. The probe and the
-    finalize use this same formula."""
+    finalize use this same formula.
+
+    The length is a ``vector_norm`` reduction, not ``torch.sqrt``: on the
+    CPU, ``torch.sqrt`` of float32 goes through MKL's vector math library,
+    which in a fresh worker thread has been seen to return x * rsqrt(x)
+    from the 12-bit reciprocal square root estimate (relative error up to
+    3.7e-4) for one thread's share of the rows, then exact results on the
+    next call (ROADMAP queue 3, F3). The reduction takes its square root
+    per row in the C library."""
     fn = torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
-    ln = torch.sqrt((fn * fn).sum(-1))[:, None]
+    ln = torch.linalg.vector_norm(fn, dim=-1, keepdim=True)
     return fn / torch.where(ln > 0, ln, 1.0)
 
 

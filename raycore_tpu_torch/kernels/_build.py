@@ -45,6 +45,10 @@ _SIGNATURES = {
                                _I, _I, _I, _F, _F, _F, _P),
     "raycore_occlusion_sweep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _F, _F, _P),
+    "raycore_packed_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _F, _P),
+    "raycore_brute_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P),
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,13 @@
   5. A grouped segment-min merges each ray's rows (one per candidate
      cluster), and the exact finalize recomputes the winner's payload.
 
+The packed sub-cluster sweep (``closest_hit_packed``) refines each
+surviving (subgroup, cluster) pair further, against the AABBs of the
+cluster's SUBC sub-chunks of C/SUBC triangles, and kernel K5
+(``run_packed``, ``csrc/packed_sweep.cu``) sweeps blocks of subgroups
+that share a sub-cluster. Dispatch takes it for large batches on scenes
+with sub_chunks >= 2.
+
 The block grid is sized exactly from the data (a host sync on the
 compactions and one ``.item()`` on the block count); nothing is sized by
 a capacity guess. Only ``passes=1`` and the compact stage 1 are ported;
@@ -110,14 +117,30 @@ def run_regrouped_plain(block_subs, block_cid, tbl, feats, *, G: int,
     closest accepted triangle (INT32_MAX on a miss), pair is cid*C + lane
     with the smallest lane on ties (-1 on a miss). Blocks with cid < 0
     write the miss sentinels. Blocks go through in chunks of at most
-    PLAIN_CHUNK_ELEMS product elements."""
-    ROWS = G * SPB
+    PLAIN_CHUNK_ELEMS product elements. The packed sweep at one sub-chunk
+    per cluster."""
+    return run_packed_plain(block_subs, block_cid, tbl, feats, G=G,
+                            SPB_sub=SPB, C_eff=C, SUBC=1)
+
+
+def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
+                     SPB_sub: int, C_eff: int, SUBC: int):
+    """The packed sub-cluster sweep in plain PyTorch: block b's SPB_sub*G
+    rows against the C_eff triangles of sub-cluster q = block_cid[b] =
+    cluster*SUBC + s, which are columns [s*4*C_eff, (s+1)*4*C_eff) of
+    ``feats[cluster]`` in the sub-chunk-major layout. Returns (key, pair)
+    as ``run_regrouped_plain`` does, with pair q*C_eff + lane (the
+    triangle's slot cluster*C + s*C_eff + lane); blocks with q < 0 write
+    the miss sentinels."""
+    ROWS = G * SPB_sub
     n_blocks = block_cid.shape[0]
     dev = tbl.device
+    K = feats.shape[0]
+    slices = feats.view(K, FEAT, SUBC, 4 * C_eff)
     keys = torch.empty(n_blocks * ROWS, dtype=torch.int32, device=dev)
     pairs = torch.empty(n_blocks * ROWS, dtype=torch.int32, device=dev)
-    step = max(1, PLAIN_CHUNK_ELEMS // (ROWS * 4 * C))
-    lanes = torch.arange(C, dtype=torch.int32, device=dev)
+    step = max(1, PLAIN_CHUNK_ELEMS // (ROWS * 4 * C_eff))
+    lanes = torch.arange(C_eff, dtype=torch.int32, device=dev)
     imax = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
     for lo in range(0, n_blocks, step):
         cid = block_cid[lo:lo + step]
@@ -129,8 +152,9 @@ def run_regrouped_plain(block_subs, block_cid, tbl, feats, *, G: int,
         # rows are zero, but inf * 0 would be NaN.
         phi = rows.clone()
         phi[:, :, COL_TMIN:] = 0.0
-        q = torch.bmm(phi, feats[cid.clamp_min(0).long()])   # (n, ROWS, 4C)
-        det, udet, vdet, tdet = q.split(C, dim=2)
+        qc = cid.clamp_min(0).long()
+        q = torch.bmm(phi, slices[qc // SUBC, :, qc % SUBC])  # (n, ROWS, 4Ce)
+        det, udet, vdet, tdet = q.split(C_eff, dim=2)
         r = 1.0 / det
         u = udet * r
         v = vdet * r
@@ -141,15 +165,44 @@ def run_regrouped_plain(block_subs, block_cid, tbl, feats, *, G: int,
         kb = torch.where(t > 0.0, t, 0.0).view(torch.int32)
         kb = torch.where(ok, kb, imax)
         key_min = kb.amin(dim=2, keepdim=True)                # (n, ROWS, 1)
-        lane = torch.where(kb == key_min, lanes, C).amin(dim=2)
+        lane = torch.where(kb == key_min, lanes, C_eff).amin(dim=2)
         key_min = key_min[:, :, 0]
         valid = (cid >= 0)[:, None]
-        pair = torch.where(key_min == INT32_MAX, -1, cid[:, None] * C + lane)
+        pair = torch.where(key_min == INT32_MAX, -1,
+                           cid[:, None] * C_eff + lane)
         keys[lo * ROWS:(lo + n) * ROWS] = \
             torch.where(valid, key_min, imax).reshape(-1)
         pairs[lo * ROWS:(lo + n) * ROWS] = \
             torch.where(valid, pair, -1).reshape(-1)
     return keys, pairs
+
+
+def _sweep_outputs(what, block_subs, block_cid, tbl, feats, *, G: int,
+                   SPB: int, PACKS: int, C_eff: int, SUBC: int):
+    """Check the card inputs of a closest-hit sweep kernel, K2 (PACKS =
+    SUBC = 1, C_eff = C) or K5: int32 ids and float32 tables, contiguous,
+    16-byte aligned and on one card; PACKS*SPB*G <= 1024 threads, C_eff %
+    4 == 0 and matching shapes. Returns the empty (key, pair) outputs, one
+    int32 row per ray row of every block."""
+    dev = tbl.device
+    _build.require(block_subs, torch.int32, "block_subs", dev)
+    _build.require(block_cid, torch.int32, "block_cid", dev)
+    _build.require(tbl, torch.float32, "tbl", dev)
+    _build.require(feats, torch.float32, "feats", dev)
+    n_blocks = block_cid.shape[0]
+    if PACKS * SPB * G > 1024 or C_eff % 4:
+        raise ValueError(
+            f"{what} needs PACKS*SPB*G <= 1024 and C_eff % 4 == 0, got "
+            f"PACKS={PACKS} SPB={SPB} G={G} C_eff={C_eff}")
+    if tuple(block_subs.shape) != (n_blocks, SPB) \
+            or tuple(tbl.shape[1:]) != (G, FEAT) \
+            or tuple(feats.shape[1:]) != (FEAT, 4 * C_eff * SUBC):
+        raise ValueError(
+            f"{what} shapes: block_subs {tuple(block_subs.shape)}, tbl "
+            f"{tuple(tbl.shape)}, feats {tuple(feats.shape)} for "
+            f"n_blocks={n_blocks} G={G} SPB={SPB} C_eff={C_eff} SUBC={SUBC}")
+    keys = torch.empty(n_blocks * G * SPB, dtype=torch.int32, device=dev)
+    return keys, torch.empty_like(keys)
 
 
 def run_regrouped(block_subs, block_cid, tbl, feats, *, G: int, SPB: int,
@@ -163,28 +216,14 @@ def run_regrouped(block_subs, block_cid, tbl, feats, *, G: int, SPB: int,
     if tbl.device.type == "cpu":
         return run_regrouped_plain(block_subs, block_cid, tbl, feats, G=G,
                                    SPB=SPB, C=C)
-    dev = tbl.device
-    _build.require(block_subs, torch.int32, "block_subs", dev)
-    _build.require(block_cid, torch.int32, "block_cid", dev)
-    _build.require(tbl, torch.float32, "tbl", dev)
-    _build.require(feats, torch.float32, "feats", dev)
+    keys, pairs = _sweep_outputs("regroup sweep", block_subs, block_cid, tbl,
+                                 feats, G=G, SPB=SPB, PACKS=1, C_eff=C,
+                                 SUBC=1)
     n_blocks = block_cid.shape[0]
-    if G * SPB > 1024 or C % 4:
-        raise ValueError(f"regroup sweep needs G*SPB <= 1024 and C % 4 == 0,"
-                         f" got G={G} SPB={SPB} C={C}")
-    if tuple(block_subs.shape) != (n_blocks, SPB) \
-            or tuple(tbl.shape[1:]) != (G, FEAT) \
-            or tuple(feats.shape[1:]) != (FEAT, 4 * C):
-        raise ValueError(
-            f"regroup sweep shapes: block_subs {tuple(block_subs.shape)}, "
-            f"tbl {tuple(tbl.shape)}, feats {tuple(feats.shape)} for "
-            f"n_blocks={n_blocks} G={G} SPB={SPB} C={C}")
-    keys = torch.empty(n_blocks * G * SPB, dtype=torch.int32, device=dev)
-    pairs = torch.empty_like(keys)
     if n_blocks == 0:
         return keys, pairs
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(tbl.device):
         err = lib.raycore_regroup_sweep(
             block_subs.data_ptr(), block_cid.data_ptr(), tbl.data_ptr(),
             feats.data_ptr(), keys.data_ptr(), pairs.data_ptr(), n_blocks,
@@ -195,6 +234,38 @@ def run_regrouped(block_subs, block_cid, tbl, feats, *, G: int, SPB: int,
 
 
 run_regrouped.launches = 0
+
+
+def run_packed(block_subs, block_cid, tbl, feats, *, G: int, SPB_sub: int,
+               PACKS: int, C_eff: int, SUBC: int):
+    """Kernel K5 (``csrc/packed_sweep.cu``): ``run_packed_plain`` on the
+    card, one CTA per PACKS consecutive sub-blocks, with the dot evaluated
+    as K2's 10-deep FMA chain. The block count need not be a multiple of
+    PACKS. CPU tensors take ``run_packed_plain``; CUDA tensors launch the
+    kernel or raise. Ids are not range-checked on the card: ``block_subs``
+    must index rows of ``tbl`` and ``block_cid`` must be below K*SUBC."""
+    if tbl.device.type == "cpu":
+        return run_packed_plain(block_subs, block_cid, tbl, feats, G=G,
+                                SPB_sub=SPB_sub, C_eff=C_eff, SUBC=SUBC)
+    keys, pairs = _sweep_outputs("packed sweep", block_subs, block_cid, tbl,
+                                 feats, G=G, SPB=SPB_sub, PACKS=PACKS,
+                                 C_eff=C_eff, SUBC=SUBC)
+    n_blocks = block_cid.shape[0]
+    if n_blocks == 0:
+        return keys, pairs
+    lib = _build.library()
+    with torch.cuda.device(tbl.device):
+        err = lib.raycore_packed_sweep(
+            block_subs.data_ptr(), block_cid.data_ptr(), tbl.data_ptr(),
+            feats.data_ptr(), keys.data_ptr(), pairs.data_ptr(), n_blocks,
+            G, SPB_sub, PACKS, C_eff, SUBC, -EDGE_EPS, 1.0 + EDGE_EPS,
+            _build.stream_ptr(tbl))
+    _build.check(err, "packed_sweep")
+    run_packed.launches += 1
+    return keys, pairs
+
+
+run_packed.launches = 0
 
 
 def combine_rows_grouped(keys, pairs, block_subs, G: int, SPB: int,
@@ -331,3 +402,100 @@ def any_hit_regrouped(scene, rays, *, tile: int = 2048, subgroup: int = 32,
     rays0 = dataclasses.replace(rays, t_min=torch.zeros_like(rays.t_min))
     return closest_hit_regrouped(scene, rays0, tile=tile, subgroup=subgroup,
                                  spb=spb, payload="occlusion")
+
+
+# --- packed sub-cluster sweep -----------------------------------------------
+
+
+def subchunk_bounds(scene):
+    """(K*SUBC, 3) sub-chunk AABB mins and maxes unpacked from
+    ``scene.sub_bounds``; row q = cluster*SUBC + s."""
+    K = scene.n_clusters
+    SUBC = scene.sub_chunks
+    sb = scene.sub_bounds[:, 0, :SUBC * 6].reshape(K, SUBC, 6)
+    return (sb[:, :, 0:3].reshape(K * SUBC, 3),
+            sb[:, :, 3:6].reshape(K * SUBC, 3))
+
+
+def _stage1_packed_core(scene, o, d, t_min, t_max, TILE, G, SPB_sub):
+    """Stage 1 of the packed sweep: phase A, the cluster-major coarse
+    worklist and the subgroup refine as in ``_stage1_cm_core``, then each
+    surviving (subgroup, cluster) pair expands to its SUBC sub-clusters,
+    each refined against its sub-chunk AABB. A stable sort on the
+    sub-cluster id makes equal ids adjacent (within a sub-cluster the
+    subgroups keep their cluster-major order), and the rank pack cuts
+    blocks of SPB_sub subgroups. Returns (block_cid, block_subs, tbl,
+    counts) with block_cid the sub-cluster id and counts (coarse pairs,
+    subgroup pairs, sub-cluster pairs, blocks)."""
+    SUBC = scene.sub_chunks
+    SPT = TILE // G
+    R = o.shape[0]
+    n_tiles = R // TILE
+    n_sub = R // G
+    dev = o.device
+
+    entry = phase_a_entry(scene, o, d, t_min, t_max, n_tiles, TILE)
+    cluster_ids, tile_ids = build_worklist(entry.T)
+    stats = subgroup_stats(o, d, t_min, t_max, G)
+    fine = refine_pairs(stats, tile_ids, cluster_ids, scene.cluster_min,
+                        scene.cluster_max, SPT, n_tiles)       # (P, SPT)
+    P = tile_ids.shape[0]
+    spt = torch.arange(SPT, dtype=torch.int32, device=dev)
+    sub = (tile_ids[:, None] * SPT + spt[None, :]).reshape(-1)
+    cid = cluster_ids[:, None].expand(P, SPT).reshape(-1)
+    sel = compact_indices(torch.isfinite(fine).reshape(-1))
+    qsub, qcid = sub[sel], cid[sel]                            # (Q,)
+    Q = sel.shape[0]
+
+    sbmin, sbmax = subchunk_bounds(scene)
+    crow = (qcid[:, None] * SUBC
+            + torch.arange(SUBC, dtype=torch.int32, device=dev)[None, :])
+    cr = crow.long()
+    e2 = interval_entry(stats[qsub.long()][:, None, :], sbmin[cr],
+                        sbmax[cr])                             # (Q, SUBC)
+    keep = compact_indices(torch.isfinite(e2).reshape(-1))
+    q = crow.reshape(-1)[keep]
+    s = qsub[:, None].expand(Q, SUBC).reshape(-1)[keep]
+    order = torch.sort(q, stable=True).indices
+    block_cid, block_subs = pack_presorted_cluster_major(
+        q[order], s[order], SPB=SPB_sub, n_sub=n_sub)
+    tbl = ray_table(o, d, t_min, t_max, G)
+    counts = (P, Q, keep.shape[0], block_cid.shape[0])
+    return block_cid, block_subs, tbl, counts
+
+
+def _stage2_packed_core(scene, block_cid, block_subs, tbl, o, d, G,
+                        SPB_sub, PACKS):
+    """K5, the grouped combine and the exact finalize. ``o``/``d`` are
+    the unpadded rays."""
+    R = o.shape[0]
+    key, pair = run_packed(block_subs, block_cid, tbl, scene.tri_feats, G=G,
+                           SPB_sub=SPB_sub, PACKS=PACKS,
+                           C_eff=scene.cluster_size // scene.sub_chunks,
+                           SUBC=scene.sub_chunks)
+    out_key, out_pair = combine_rows_grouped(key, pair, block_subs, G,
+                                             SPB_sub, tbl.shape[0] - 1)
+    # The keys are full t bits, not the worklist's truncated keys.
+    t = _t_from_keys(out_key[:R], 0)
+    return finalize_hits_exact(scene, out_pair[:R], t, o, d)
+
+
+def closest_hit_packed(scene, rays, *, tile: int = 2048, subgroup: int = 32,
+                       spb_sub: int = 2, packs: int = 8):
+    """Exact closest hit via the packed sub-cluster sweep: candidates are
+    (G-ray subgroup, sub-cluster of C/SUBC triangles) pairs, swept in
+    sub-blocks of ``spb_sub`` subgroups that share a sub-cluster (kernel
+    K5). A scene with sub_chunks = 1 runs at cluster granularity
+    (C_eff = C). The full payload is returned.
+
+    ``packs`` only sets how many sub-blocks one CTA of K5 takes (on the
+    TPU it was the depth of the block-diagonal product); the results do
+    not depend on it. The grid is sized exactly from the data, so there
+    is no capacity option."""
+    batch = rays.batch_shape
+    o, d, t_min, t_max, R0, G, TILE = _padded_batch(rays, tile, subgroup)
+    block_cid, block_subs, tbl, _ = _stage1_packed_core(
+        scene, o, d, t_min, t_max, TILE, G, spb_sub)
+    res = _stage2_packed_core(scene, block_cid, block_subs, tbl, o[:R0],
+                              d[:R0], G, spb_sub, packs)
+    return res.map(lambda a: a.reshape(batch + tuple(a.shape[1:])))

@@ -1,5 +1,6 @@
 """Procedural meshes (counterpart of ``raycore_tpu/scene/mesh.py``,
-partial: ``uv_sphere``, ``build_triangles``, ``blobby_mesh`` and
+partial: ``uv_sphere``, ``build_triangles``, ``sphere_mesh``,
+``box_mesh``, ``plane_mesh``, ``blobby_mesh`` and
 ``displaced_grid_mesh``).
 
 The geometry is built on the host in NumPy with the same code and the same
@@ -94,6 +95,41 @@ def uv_sphere(center=(0, 0, 0), radius=1.0, n_theta=16, n_phi=32):
     flip = np.einsum("ij,ij->i", n, outward) < 0
     faces[flip] = faces[flip][:, ::-1]
     return verts, faces, pts
+
+
+def sphere_mesh(center=(0, 0, 0), radius=1.0, n_theta=16, n_phi=32,
+                metadata=None, device=None) -> Triangle:
+    """A UV sphere with its unit per-vertex normals."""
+    v, f, n = uv_sphere(center, radius, n_theta, n_phi)
+    return build_triangles(v, f, normals=n, metadata=metadata, device=device)
+
+
+def box_mesh(p_min=(-1, -1, -1), p_max=(1, 1, 1), metadata=None,
+             device=None) -> Triangle:
+    """An axis-aligned box, 12 triangles wound outward."""
+    p0 = np.asarray(p_min, np.float32)
+    p1 = np.asarray(p_max, np.float32)
+    corners = np.array([[p1[0] if i & 1 else p0[0],
+                         p1[1] if i & 2 else p0[1],
+                         p1[2] if i & 4 else p0[2]] for i in range(8)],
+                       np.float32)
+    quads = [(0, 2, 3, 1), (4, 5, 7, 6),     # -z, +z
+             (0, 1, 5, 4), (2, 6, 7, 3),     # -y, +y
+             (0, 4, 6, 2), (1, 3, 7, 5)]     # -x, +x
+    faces = [f for a, b, c, d in quads for f in ((a, b, c), (a, c, d))]
+    return build_triangles(corners, np.asarray(faces, np.int64),
+                           metadata=metadata, device=device)
+
+
+def plane_mesh(center=(0, 0, 0), u=(1, 0, 0), v=(0, 1, 0), metadata=None,
+               device=None) -> Triangle:
+    """A 2-triangle quad: center +- u +- v."""
+    c = np.asarray(center, np.float32)
+    u = np.asarray(u, np.float32)
+    v = np.asarray(v, np.float32)
+    verts = np.stack([c - u - v, c + u - v, c + u + v, c - u + v])
+    faces = np.asarray([(0, 1, 2), (0, 2, 3)], np.int64)
+    return build_triangles(verts, faces, metadata=metadata, device=device)
 
 
 def blobby_mesh(n_theta=354, n_phi=354, radius=1.0, amplitude=0.25,

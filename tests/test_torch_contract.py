@@ -14,6 +14,7 @@ import torch
 import raycore_tpu_torch as rt
 from raycore_tpu_torch import convert
 from raycore_tpu_torch.kernels import _build
+from raycore_tpu_torch.ops import brute as ops_brute
 from raycore_tpu_torch.ops import dense as ops_dense
 from raycore_tpu_torch.ops import regroup as ops_regroup
 
@@ -47,16 +48,19 @@ def test_port_sources_never_import_jax():
 
 
 KERNELS = (ops_dense.phase_a, ops_regroup.run_regrouped,
-           ops_dense.run_worklist, ops_dense.run_occlusion)
+           ops_dense.run_worklist, ops_dense.run_occlusion,
+           ops_regroup.run_packed, ops_brute.run_brute)
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
     """Every query path on CPU tensors: the regrouped engine (K1, K2), the
-    worklist closest hit (K3) and the worklist occlusion (K4)."""
+    worklist closest hit (K3), the worklist occlusion (K4), the packed
+    engine (K1, K5) and the dense brute-force sweep (K6)."""
     for fn in KERNELS:
         fn.launches = 0
-    scene = rt.build_dense(rt.displaced_grid_mesh(n=12, device="cpu"),
-                           cluster_size=32)
+    mesh = rt.displaced_grid_mesh(n=12, device="cpu")
+    scene = rt.build_dense(mesh, cluster_size=32)
+    scene4 = rt.build_dense(mesh, cluster_size=32, sub_chunks=4)
     rng = np.random.default_rng(0)
     o = torch.as_tensor(rng.uniform(-0.9, 0.9, (300, 3)), dtype=torch.float32)
     o[:, 2] = 2.0
@@ -64,9 +68,11 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     for res in (rt.closest_hit(scene, rays),
                 ops_regroup.closest_hit_regrouped(scene, rays, tile=2048),
                 rt.any_hit(scene, rays),
-                ops_regroup.any_hit_regrouped(scene, rays)):
+                ops_regroup.any_hit_regrouped(scene, rays),
+                rt.closest_hit_packed(scene4, rays),
+                rt.closest_hit_brute_pallas(mesh, rays)):
         assert bool(res.hit.all())
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
 
 
 def test_entry_points_default_to_the_card():
@@ -113,6 +119,16 @@ def test_wrappers_raise_for_tensors_off_the_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         ops_dense.run_occlusion(ids, ids, phi, feats, rows, rows, TILE=128,
                                 C=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops_regroup.run_packed(
+            torch.zeros((1, 2), dtype=torch.int32, device="meta"),
+            torch.zeros((1,), dtype=torch.int32, device="meta"), tbl,
+            torch.zeros((2, 16, 64), device="meta"), G=8, SPB_sub=2,
+            PACKS=4, C_eff=4, SUBC=4)
+    ray3 = torch.zeros((128, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops_brute.run_brute(torch.zeros((9, 512), device="meta"), ray3, ray3,
+                            rows, rows)
 
 
 def test_missing_nvcc_is_reported(monkeypatch, tmp_path):

@@ -40,7 +40,11 @@ def _same_triangles(a, b):
     lambda m, **kw: m.build_triangles(
         *m.uv_sphere((0.5, 0, -1), 2.0, 6, 9)[:2],
         normals=m.uv_sphere((0.5, 0, -1), 2.0, 6, 9)[2], **kw),
-], ids=["grid40", "grid17", "blobby", "sphere"])
+    lambda m, **kw: m.sphere_mesh((0.5, 0, -1), 2.0, 12, 24, **kw),
+    lambda m, **kw: m.box_mesh((-1, -2, -3), (0.5, 1.5, 2.5), **kw),
+    lambda m, **kw: m.plane_mesh((0, 0, 1), (1, 0, 0.2), (0, 2, 0), **kw),
+], ids=["grid40", "grid17", "blobby", "sphere", "sphere_mesh", "box_mesh",
+        "plane_mesh"])
 def test_mesh_generators_match(make):
     _same_triangles(make(j_mesh), make(t_mesh, device=CPU))
 

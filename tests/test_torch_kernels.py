@@ -11,6 +11,7 @@ import torch
 
 import raycore_tpu_torch as rt
 from raycore_tpu_torch.kernels import _build
+from raycore_tpu_torch.ops import brute as ops_brute
 from raycore_tpu_torch.ops import dense as ops_dense
 from raycore_tpu_torch.ops import regroup as ops_regroup
 
@@ -249,6 +250,123 @@ def test_worklist_queries_on_card_match_cpu_and_oracle(cuda):
     assert torch.equal(oracle.hit, got.hit)
 
 
+@pytest.mark.parametrize("SUB,spb_sub,packs", [(4, 2, 8), (1, 2, 8),
+                                                (4, 4, 4)])
+def test_packed_sweep_kernel_matches_plain(cuda, SUB, spb_sub, packs):
+    """K5 against its plain version on a query's own blocks at C=256:
+    C_eff = 64 (SUB=4) and C_eff = 256 (SUB=1, each slice staged in four
+    lane chunks). Extra q = -1 blocks make the block count not a multiple
+    of PACKS and write the sentinels; dummy subgroup slots never hit; hit
+    masks agree, t within rtol 2e-6 (the dot's summation order differs)
+    and rows with equal keys name the same triangle."""
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=256, sub_chunks=SUB)
+    # Coherent rays, so that subgroups cull sub-chunks and sub-clusters
+    # end in partly filled blocks.
+    xs = torch.linspace(-0.9, 0.9, 64, device=cuda)
+    o = torch.stack(torch.meshgrid(xs, xs, indexing="ij") + (
+        torch.full((64, 64), 3.0, device=cuda),), -1).reshape(-1, 3)
+    rays = rt.Ray.create(o, torch.tensor([0.0, 0.0, -1.0], device=cuda))
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+        rays, 512, 32)
+    bc, bs, tbl, _ = ops_regroup._stage1_packed_core(
+        scene, po, pd, ptmin, ptmax, TILE, G, spb_sub)
+    n_pad = 3 if (bc.shape[0] + 3) % packs else 4
+    bc = torch.cat([bc, torch.full((n_pad,), -1, dtype=torch.int32,
+                                   device=cuda)])
+    bs = torch.cat([bs, bs[:n_pad]])
+    kw = dict(G=G, SPB_sub=spb_sub, C_eff=256 // SUB, SUBC=SUB)
+    before = ops_regroup.run_packed.launches
+    kk, pk = ops_regroup.run_packed(bs, bc, tbl, scene.tri_feats,
+                                    PACKS=packs, **kw)
+    assert ops_regroup.run_packed.launches == before + 1
+    kp, pp = ops_regroup.run_packed_plain(bs, bc, tbl, scene.tri_feats, **kw)
+    tail = n_pad * G * spb_sub
+    assert bool((kk[-tail:] == INT32_MAX).all())
+    assert bool((pk[-tail:] == -1).all())
+    dummy = (bs == tbl.shape[0] - 1).repeat_interleave(G, dim=1).reshape(-1)
+    assert bool(dummy.any()) and bool((kk[dummy] == INT32_MAX).all())
+    hk, hp = kk != INT32_MAX, kp != INT32_MAX
+    assert int(hp.sum()) > 0
+    assert torch.equal(hk, hp)
+    tk, tp = kk[hk].view(torch.float32), kp[hk].view(torch.float32)
+    torch.testing.assert_close(tk, tp, rtol=2e-6, atol=0)
+    same_key = kk[hk] == kp[hk]
+    assert torch.equal(pk[hk][same_key], pp[hk][same_key])
+
+
+def _pinhole_rays(side, device, dist=3.0, half=0.5):
+    """A side x side pinhole camera at (0, 0, dist) looking down -z over
+    [-half, half]^2 on the plane at distance 1; no ray has x or y = 0."""
+    s = (np.arange(side, dtype=np.float32) + 0.5) / side * 2 * half - half
+    X, Y = np.meshgrid(s, s, indexing="ij")
+    d = np.stack([X, Y, -np.ones_like(X)], -1).reshape(-1, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(np.array([0, 0, dist], np.float32), d.shape)
+    return (torch.as_tensor(np.ascontiguousarray(o), device=device),
+            torch.as_tensor(d.astype(np.float32), device=device))
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_brute_sweep_kernel_bitwise(cuda, padded):
+    """K6 against its plain version, bit for bit, on 1000 rays (not a
+    multiple of RAY_TILE) against a 1,840-triangle sphere (not a multiple
+    of TRI_BLOCK) with t ranges, and on the zero-padded table."""
+    tris = rt.sphere_mesh(n_theta=24, n_phi=40, device=cuda)
+    T = tris.vertices.shape[0]
+    table = ops_brute.make_tri_table(tris)
+    if not padded:
+        table = table[:, :T].contiguous()
+    o, d = _pinhole_rays(32, cuda)
+    o, d = o[:1000].contiguous(), d[:1000].contiguous()
+    t_min = torch.zeros(1000, device=cuda)
+    t_max = torch.full((1000,), float("inf"), device=cuda)
+    t_min[::5] = 2.5
+    t_max[1::5] = 2.2
+    before = ops_brute.run_brute.launches
+    got = ops_brute.run_brute(table, o, d, t_min, t_max)
+    assert ops_brute.run_brute.launches == before + 1
+    ref = ops_brute.run_brute_plain(table, o, d, t_min, t_max)
+    assert 0 < int((ref[1] >= 0).sum()) < 1000
+    for g, r in zip(got, ref):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+def test_packed_and_brute_queries_on_card_match_cpu(cuda):
+    """closest_hit_packed (K1, K5) and closest_hit_brute_pallas (K6) on the
+    card against the same queries on the CPU: the packed engine within
+    the engine contract's rtol 2e-5 on t, the dense sweep bit for bit."""
+    scene_cpu = rt.build_dense(rt.displaced_grid_mesh(n=40, device="cpu"),
+                               cluster_size=128, sub_chunks=4)
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=128, sub_chunks=4)
+    rays_cpu = _incoherent_rays(1024, 8, "cpu")
+    rays = _incoherent_rays(1024, 8, cuda)
+    counts = (ops_dense.phase_a.launches, ops_regroup.run_packed.launches)
+    got = rt.closest_hit_packed(scene, rays)
+    assert (ops_dense.phase_a.launches, ops_regroup.run_packed.launches) \
+        == (counts[0] + 1, counts[1] + 1)
+    ref = rt.closest_hit_packed(scene_cpu, rays_cpu)
+    assert torch.equal(got.hit.cpu(), ref.hit) and bool(ref.hit.any())
+    torch.testing.assert_close(got.t.cpu(), ref.t, rtol=2e-5, atol=2e-6)
+    assert torch.equal(rt.closest_hit_brute(scene.prims, rays).hit, got.hit)
+
+    tris = rt.sphere_mesh(n_theta=16, n_phi=24, device=cuda)
+    tris_cpu = rt.sphere_mesh(n_theta=16, n_phi=24, device="cpu")
+    o, d = _pinhole_rays(33, cuda)
+    before = ops_brute.run_brute.launches
+    got = rt.closest_hit_brute_pallas(tris, rt.Ray.create(o, d))
+    assert ops_brute.run_brute.launches == before + 1
+    ref = rt.closest_hit_brute_pallas(tris_cpu,
+                                      rt.Ray.create(o.cpu(), d.cpu()))
+    assert 0 < int(ref.hit.sum()) < ref.hit.numel()
+    for f in ("hit", "prim_idx", "instance_idx"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f))
+    for f in ("t", "barycentric"):
+        assert torch.equal(getattr(got, f).cpu().view(torch.int32),
+                           getattr(ref, f).view(torch.int32))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     stats = torch.zeros((4, 16), device=cuda)
     bounds = torch.zeros((6, 8), device=cuda)
@@ -265,6 +383,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                   C=16)
     with pytest.raises(ValueError):
         ops_regroup.run_regrouped(subs, cid, tbl, feats, G=8, SPB=2, C=18)
+    with pytest.raises(ValueError, match="1024"):
+        ops_regroup.run_packed(subs, cid, tbl, feats, G=8, SPB_sub=2,
+                               PACKS=128, C_eff=4, SUBC=4)
+    with pytest.raises(ValueError, match="shapes"):
+        ops_regroup.run_packed(subs, cid, tbl, feats, G=8, SPB_sub=2,
+                               PACKS=4, C_eff=8, SUBC=4)
     ids = torch.zeros((1,), dtype=torch.int32, device=cuda)
     phi = torch.zeros((2048, 16), device=cuda)
     rows = torch.zeros((2048,), device=cuda)

@@ -218,18 +218,23 @@ def test_t_ranges():
 
 
 def test_dispatch_routes_on_batch_size(monkeypatch):
-    """Batches below REGROUP_MIN_RAYS, and every batch on a sub_chunks > 1
-    scene, go to the worklist (tile 512); others to the regrouped engine
-    (tile 2048, passes 1). The threshold is lowered to reach both at test
+    """Batches below REGROUP_MIN_RAYS go to the worklist (tile 512) on
+    every scene; larger ones to the regrouped engine (tile 2048, passes 1)
+    on a sub_chunks == 1 scene and to the packed engine (tile 2048) on a
+    sub_chunks == 4 scene. The threshold is lowered to reach them at test
     size."""
     calls = []
     spy(monkeypatch, t_pd, "closest_hit_dense_pallas_auto", calls)
     spy(monkeypatch, t_pr, "closest_hit_regrouped", calls)
+    spy(monkeypatch, t_pr, "closest_hit_packed", calls)
     _, ts = _scenes()
     _, ts4 = _scenes(SUB=4)
     o, d = ray_arrays(R=1024, seed=5)
     tr = torch_rays(o, d)
     worklist = rt.closest_hit(ts, tr)
+    assert calls == [("closest_hit_dense_pallas_auto", dict(tile=512))]
+    calls.clear()
+    rt.closest_hit(ts4, tr)
     assert calls == [("closest_hit_dense_pallas_auto", dict(tile=512))]
     monkeypatch.setattr(t_dispatch, "REGROUP_MIN_RAYS", 1024)
     calls.clear()
@@ -237,6 +242,9 @@ def test_dispatch_routes_on_batch_size(monkeypatch):
     assert calls == [("closest_hit_regrouped",
                       dict(tile=2048, passes=1, payload="slim"))]
     calls.clear()
-    rt.closest_hit(ts4, tr)
-    assert [c[0] for c in calls] == ["closest_hit_dense_pallas_auto"]
+    packed = rt.closest_hit(ts4, tr, payload="slim")
+    assert calls == [("closest_hit_packed", dict(tile=2048))]
+    # The packed engine has no slim mode: the full payload comes back.
+    assert packed.triangle.vertices[packed.hit].any()
     check_worklist_hits(regrouped, worklist, _bits(ts))
+    check_worklist_hits(packed, worklist, _bits(ts))
