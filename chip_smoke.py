@@ -53,7 +53,15 @@ count set to 0 just before it and read just after:
      65,024-triangle sphere and 512^2 pinhole rays: bit for bit against
      its plain version on a 16,384-ray subset and against the oracle on
      a 4096-ray sample; its bound from the tests this data needs (each
-     test stops once u, then v, fails).
+     test stops once u, then v, fails);
+ 15-18. the card probes (raycore_tpu_torch/tools/), each at its tool's
+     default shapes: every variant of its kernel against its plain
+     version, then the tool's rows through the tool's main(), which is
+     the path whose launches are counted: 15 the row gather (P1), 16 the
+     worklist epilogue variants (P2; the accepted share under the tool's
+     key0 seed, which accepts nothing, and under a finite one), 17 the
+     small-depth contraction by precision tier (P3), 18 the regroup-block
+     ablations (P4), its full block beside K2's time per block.
 
 Every query path (phases 6 and 8-14) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
@@ -65,6 +73,7 @@ its path, error against its plain version, times and bound; the last line
 is {"ok": true, "device": {...}}.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -111,6 +120,9 @@ SHADOW_LIFT = 1e-3
 # operations over the first and its bytes over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# The tensor cores' dense peaks (the probes' mma.sync variants).
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 # One featurized (ray, triangle) test: four 10-deep dots, 40 fused
 # multiply-adds = 80 floating-point operations. The epilogue (reciprocal,
 # three products, compares) is not counted, so the bound stays a floor.
@@ -133,6 +145,11 @@ BRUTE_T_FLOPS = 5 + 1
 BRUTE_SPHERE = (128, 256)
 BRUTE_SIDE = 512
 BRUTE_SUBSET = 16384
+# The card probes' sizes, the tools' defaults: P1's table rows and steps,
+# P2's TILE and blocks, P4's blocks.
+GATHER_SHAPE = (8192, 2048)
+EPILOGUE_SHAPE = (512, 8192)
+PROBE_BLOCKS = 8192
 
 
 def say(phase, msg):
@@ -228,11 +245,12 @@ def compare_sweeps(what, kk, pk, kp, pp, bits):
     return rows, int(hp.sum()), flips, pair_diff, err, rel
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=PEAK_FP32_FLOPS):
     """(ms, what bounds it): the least time the card could take to move
-    ``n_bytes`` and do ``flops`` float32 operations."""
+    ``n_bytes`` and do ``flops`` operations at ``peak`` (float32 outside
+    the tensor cores unless given)."""
     by_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
-    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    by_ops = flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -334,6 +352,10 @@ def main():
     from raycore_tpu_torch.ops import brute as ops_brute
     from raycore_tpu_torch.ops import dense as ops_dense
     from raycore_tpu_torch.ops import regroup as ops_regroup
+    from raycore_tpu_torch.tools import epilogue_experiments as p2
+    from raycore_tpu_torch.tools import gather_probe as p1
+    from raycore_tpu_torch.tools import probe_block_overhead as p4
+    from raycore_tpu_torch.tools import probe_matmul_shapes as p3
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -427,7 +449,11 @@ def main():
                 "worklist_sweep": ops_dense.run_worklist,
                 "occlusion_sweep": ops_dense.run_occlusion,
                 "packed_sweep": ops_regroup.run_packed,
-                "brute_sweep": ops_brute.run_brute}
+                "brute_sweep": ops_brute.run_brute,
+                "gather_probe": p1.run_gather,
+                "epilogue_probe": p2.run_epilogue,
+                "matmul_probe": p3.run_matmul,
+                "block_probe": p4.run_block}
 
     def zero_counts():
         for fn in counters.values():
@@ -671,6 +697,13 @@ def main():
     # scale ops/pallas_brute.py names ("meshes up to ~64K triangles").
     k6 = brute_phase(14, rt, ops_brute, dev, read_counts, zero_counts)
 
+    # 15-18. The card probes, each through its tool's entry point.
+    probes = [gather_phase(15, p1, dev, read_counts, zero_counts),
+              epilogue_phase(16, p2, dev, read_counts, zero_counts),
+              matmul_phase(17, p3, dev, read_counts, zero_counts),
+              block_phase(18, p4, dev, read_counts, zero_counts,
+                          k2_ms / n_blocks * 1e3)]
+
     kernels = [
         {"name": "phase_a", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/phase_a.cu",
@@ -712,7 +745,12 @@ def main():
          "ms": k6["ms"], "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1],
          "library_ms": None},
-    ]
+    ] + [{"name": p["name"], "route": "cuda",
+          "source": f"raycore_tpu_torch/csrc/{p['name']}.cu",
+          "replaces": p["replaces"], "launches": p["launches"],
+          "max_abs_err": p["err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
+          "bound_ms": p["bound"][0], "bound_by": p["bound"][1],
+          "library_ms": p["library_ms"]} for p in probes]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1090,6 +1128,246 @@ def shadow_oracle(rt, scene, rays, occ, t_occ, rng):
             f"surface (none allowed), {n_flip} in all (at most "
             f"{NEAR_SURFACE_FLIPS_MAX}, all within t < {NEAR_SURFACE_T})")
     return n_flip, int(near.sum())
+
+
+def probe_result(name, replaces, launches, err, ms, plain_ms, b, library_ms):
+    """A probe's entry of the kernels line."""
+    return dict(name=name, replaces=replaces, launches=launches, err=err,
+                ms=ms, plain_ms=plain_ms, bound=b, library_ms=library_ms)
+
+
+def gather_phase(phase, p1, dev, read_counts, zero_counts):
+    """P1 at the tool's default shapes, an (8192, 128) table and 2,048
+    steps of 512 fetches: every variant against its plain version within
+    ``gather_probe.tolerance``; the tool's rows through its main() on the
+    same data, the launches counted there and its times (best of 5) those
+    of the kernels line; ``loop``'s plain version timed beside them.
+    Bound: the indices, the table and the output moved once, one addition
+    per fetched element."""
+    NN, steps = GATHER_SHAPE
+    idx, tbl = p1.make_inputs(NN, steps, dev)
+    errs = {}
+    for v in p1.VARIANTS:
+        err = (p1.run_gather(idx, tbl, v) - p1.run_gather_plain(idx, tbl, v)) \
+            .abs()
+        ratio = float((err / p1.tolerance(idx, tbl, v)).max())
+        if ratio > 1:
+            raise AssertionError(f"P1 {v}: error {ratio:.3g} x the bound")
+        errs[v] = float(err.max())
+    say(phase, "gather probe: " + ", ".join(
+        f"{v} max err {e:.3g}" for v, e in errs.items())
+        + " (within 2^-14 of the fetched magnitudes); the tool's rows:")
+    zero_counts()
+    rows = {r["variant"]: r["ms"] for r in p1.main(NN, steps, reps=5,
+                                                   device=dev)}
+    torch.cuda.synchronize()
+    launches = read_counts("gather probe main", ["gather_probe"])
+    ms = {v: rows[v] for v in p1.VARIANTS}
+    library_ms = rows["library"]
+    plain_ms = cuda_ms(lambda: p1.run_gather_plain(idx, tbl, "loop"), 3)
+    out_bytes = steps * p1.W * 4
+    b = bound(nbytes(idx, tbl) + out_bytes, idx.numel() * p1.W)
+    say(phase, f"gather probe (NN {NN}, {steps} steps): " + ", ".join(
+        f"{v} {t:.4f} ms" for v, t in ms.items())
+        + f"; plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}); onehot's own work "
+          f"{2 * 512 * NN * p1.W * steps / PEAK_BF16_FLOPS * 1e3:.4f} ms "
+          f"at the bf16 peak; launches {launches}")
+    return probe_result("gather_probe", "tools/tpu_gather_probe.py:39",
+                        launches["gather_probe"], max(errs.values()),
+                        ms["loop"], plain_ms, b, library_ms)
+
+
+def epilogue_phase(phase, p2, dev, read_counts, zero_counts):
+    """P2 at the tool's default shapes (64 tiles of 512 rows, 8,192
+    blocks): every variant against its plain version under the tool's key0
+    seed (t a NaN: nothing accepted) and under a seed that decodes to t =
+    10, on 128 blocks (two per tile; the plain version's float64 dot makes
+    more slow); the accepted share of ``full`` under both seeds; every
+    variant timed under t = 10, which the tool does not run; the tool's
+    rows through its main() (the tool's seed), the launches counted there
+    and its ``full`` row the kernels line's time. Bound of ``full``: 128
+    FLOP per (row, lane) over every block, every tile's rows, tmin, key0
+    and table read once, the keys written once."""
+    TILE, n_blocks = EPILOGUE_SHAPE
+    phi, feats, tmin, key0 = p2.make_inputs(TILE, device=dev)
+    seeds = {"tool": key0, "finite": p2.finite_key0(key0.shape[0],
+                                                    device=dev)}
+    worst, beyond = 0.0, 0
+    for v in p2.VARIANTS:
+        for name, k0 in seeds.items():
+            kw = dict(TILE=TILE, n_blocks=2 * p2.N_TILES, variant=v)
+            n, err = p2.check(p2.run_epilogue(phi, feats, tmin, k0, **kw),
+                              p2.run_epilogue_plain(phi, feats, tmin, k0,
+                                                    **kw),
+                              v, f"P2 ({name} seed)")
+            worst, beyond = max(worst, err), beyond + n
+    full = lambda k0: p2.run_epilogue(phi, feats, tmin, k0, TILE=TILE,
+                                      n_blocks=n_blocks, variant="full")
+    share = {name: float((full(k0) != k0).float().mean())
+             for name, k0 in seeds.items()}
+    plain_ms = cuda_ms(lambda: p2.run_epilogue_plain(
+        phi, feats, tmin, key0, TILE=TILE, n_blocks=n_blocks,
+        variant="full"), 1)
+    every = {v: cuda_ms(lambda v=v: p2.run_epilogue(
+        phi, feats, tmin, seeds["finite"], TILE=TILE, n_blocks=n_blocks,
+        variant=v), 3) for v in p2.VARIANTS}
+    say(phase, f"epilogue probe: 7 variants x 2 seeds equal to plain "
+               f"({beyond} rows past the approximate reciprocal's bound, "
+               f"max t err {worst:.3g}); full on {n_blocks} blocks accepts "
+               f"{share['tool']:.4f} of rows under the tool's seed "
+               f"0x7FFFFF80 and {share['finite']:.4f} under t = 10; every "
+               f"variant at TILE {TILE} under t = 10: " + ", ".join(
+                   f"{v} {t:.3f} ms" for v, t in every.items())
+        + "; the tool's rows:")
+    zero_counts()
+    rows = p2.main(TILE, n_blocks, reps=3, device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts("epilogue probe main", ["epilogue_probe"])
+    ms = next(r["ms"] for r in rows
+              if r["variant"] == "full" and r["TILE"] == TILE)
+    C = p2.C
+    say(phase, "bounds (operations): " + ", ".join(
+        f"{r['label']} "
+        f"{r['n_blocks'] * r['TILE'] * C * (38 if 'vpu' in r['variant'] else 128) / PEAK_FP32_FLOPS * 1e3:.4f} ms"
+        for r in rows) + f"; launches {launches}")
+    b = bound(nbytes(phi, feats, tmin, key0) + key0.numel() * 4,
+              n_blocks * TILE * C * 128)
+    return probe_result("epilogue_probe", "tools/epilogue_experiments.py:28",
+                        launches["epilogue_probe"], worst, ms, plain_ms, b,
+                        None)
+
+
+def matmul_phase(phase, p3, dev, read_counts, zero_counts):
+    """P3: the four tiers at (512, K, 512), K = 16 and 128, against the
+    plain version of each tier: the FMA tier bit for bit, the tensor-core
+    tiers within ``probe_matmul_shapes.tolerance``, whose limit must sit
+    below the gap to the neighbouring tier's product (``tier_gap``); each
+    tier's distance from the exact product is printed beside it. Then the
+    tool's twelve rows through its main() and the 3xTF32 tier at (512, 16,
+    512), which the tool does not run, the launches counted there. The
+    kernels line takes the FMA tier's (512, 16, 512) row of main() at its
+    first step count, beside its plain version and torch.matmul on the
+    operands expanded to as many steps. Bound: 2 M K N per step at the
+    tier's peak (3xTF32 counts its three passes)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    tiers = (("highest", f32), ("high", f32), ("default", f32),
+             ("default", bf16))
+    peak = {"fma": (PEAK_FP32_FLOPS, 1), "3xtf32": (PEAK_TF32_FLOPS, 3),
+            "tf32": (PEAK_TF32_FLOPS, 1), "bf16": (PEAK_BF16_FLOPS, 1)}
+    errs, worst = [], 0.0
+    for K in (16, 128):
+        for prec, dtype in tiers:
+            a, b = p3.operands(512, K, 512, dtype, dev)
+            v = p3.variant_of(prec, dtype)
+            got = p3.run_matmul(a, b, 4, prec)
+            want = p3.run_matmul_plain(a, b, 4, prec)
+            S = (a.double().abs() @ b.double().abs()).sum(1, keepdim=True)
+            exact = (a.double() @ b.double()).sum(1, keepdim=True)
+            err = (got - want).abs()
+            worst = max(worst, float(err.max()))
+            note = f"{v} K={K}: "
+            if v == "fma":
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(f"P3 fma K={K}: not bit for bit "
+                                         f"equal to plain")
+                note += "bit for bit"
+            else:
+                ratio = float((err / p3.tolerance(a, b, v)).max())
+                if ratio > 1:
+                    raise AssertionError(f"P3 {v} K={K}: error {ratio:.3g} "
+                                         f"x its limit")
+                note += (f"err {float(err.max()):.3g} = 2^"
+                         f"{math.log2(max(float((err / S).max()), 2.0 ** -60)):.2f}"
+                         f" S, {ratio:.3g} of its limit")
+                if v != "bf16":
+                    gap = p3.tier_gap(a, b, v)
+                    if gap <= 1:
+                        raise AssertionError(f"P3 {v} K={K}: the limit does "
+                                             f"not tell it from its "
+                                             f"neighbour ({gap:.3g})")
+                    note += f", neighbour {gap:.3g} limits away"
+            off = float(((got.double() - exact).abs() / S).max())
+            errs.append(note + f"; from the exact product 2^"
+                        f"{math.log2(max(off, 2.0 ** -60)):.2f} S")
+    say(phase, "matmul probe vs plain (S: the row's sum of product "
+               "magnitudes): " + "; ".join(errs) + "; the tool's rows:")
+    zero_counts()
+    rows = p3.main(reps=3, device=dev)
+    say(phase, "3xTF32, which the tool does not run:")
+    rows.append(p3.probe(512, 16, 512, "high", f32, reps=3, device=dev))
+    torch.cuda.synchronize()
+    launches = read_counts("matmul probe main", ["matmul_probe"])
+    flops = 2 * 512 * 16 * 512
+    at = {r["variant"]: r for r in rows
+          if (r["M"], r["K"], r["N"]) == (512, 16, 512)}
+    say(phase, "per step at (512, 16, 512) against the bound: " + ", ".join(
+        f"{v} {r['us_per_step']:.4f} us vs "
+        f"{flops * peak[v][1] / peak[v][0] * 1e6:.4f} us"
+        for v, r in at.items()) + f"; launches {launches}")
+    steps, ms = at["fma"]["steps"][0], at["fma"]["ms"][0]
+    a, b = p3.operands(512, 16, 512, f32, dev)
+    plain_ms = cuda_ms(lambda: p3.run_matmul_plain(a, b, steps, "highest"),
+                       3)
+    library_ms = cuda_ms(lambda: p3.matmul_library(a, b, steps, "highest"),
+                         3)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the matmul probe left allow_tf32 set")
+    bnd = bound(nbytes(a, b) + 512 * 4, flops * steps)
+    say(phase, f"fma tier (512, 16, 512) x {steps} steps: kernel {ms:.4f} "
+               f"ms, plain {plain_ms:.4f} ms (one product), library "
+               f"{library_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return probe_result("matmul_probe", "tools/probe_matmul_shapes.py:30",
+                        launches["matmul_probe"], worst, ms, plain_ms, bnd,
+                        library_ms)
+
+
+def block_phase(phase, p4, dev, read_counts, zero_counts, k2_us):
+    """P4 at the tool's default shapes (a 32,768-subgroup ray table, 8,192
+    clusters): every row of the tool against its plain version on 64
+    blocks, bit for bit; the tool's rows through its main(), the launches
+    counted there, its ``full`` row at SPB 16 the kernels line's time, held
+    beside K2's time per headline block (``k2_us``, phase 5). Bound: 104
+    FLOP per (row, lane), each distinct gathered subgroup and each
+    distinct cluster's 13 used feature rows read once (main() counts
+    them), the ids read and both outputs written once."""
+    from raycore_tpu_torch.tools._common import check_equal
+    tbl, feats, gen = p4.make_inputs(device=dev)
+    n_sub, K = tbl.shape[0] - 1, feats.shape[0]
+    n_check, ids = 64, {}
+    for v, G, SPB in p4.CONFIGS:
+        ids[SPB] = p4.block_ids(n_check, SPB, n_sub, K, gen)
+        tblc = torch.randn((n_check, G * SPB, 16), generator=gen,
+                           device=dev) if v == "contig_tbl" else None
+        args = (v, G, SPB, *ids[SPB], tbl, feats, tblc)
+        check_equal(p4.run_block(*args), p4.run_block_plain(*args),
+                    f"P4 {v} SPB={SPB}")
+    plain_ms = cuda_ms(lambda: p4.run_block_plain("full", 32, 16, *ids[16],
+                                                  tbl, feats), 1)
+    say(phase, f"block probe: every row of the tool bit for bit equal to "
+               f"plain on {n_check} blocks; the tool's rows:")
+    zero_counts()
+    row = next(r for r in p4.main(PROBE_BLOCKS, reps=3, device=dev)
+               if (r["variant"], r["SPB"]) == ("full", 16))
+    torch.cuda.synchronize()
+    launches = read_counts("block probe main", ["block_probe"])
+    n_blocks, G, SPB, ms = row["n_blocks"], row["G"], row["SPB"], row["ms"]
+    rows = n_blocks * G * SPB
+    b = bound(row["distinct_subs"] * G * 16 * 4
+              + row["distinct_cids"] * 13 * 4 * p4.C * 4
+              + (n_blocks * SPB + n_blocks) * 4 + 2 * rows * 4,
+              rows * p4.C * 104)
+    us = ms * 1e3 / n_blocks
+    say(phase, f"full SPB {SPB}: {ms:.3f} ms for {n_blocks} blocks, "
+               f"{us:.4f} us/block ({us * 1e6 / (G * SPB * p4.C):.3f} ps "
+               f"per (row, lane)); K2 on the headline's blocks {k2_us:.4f} "
+               f"us/block ({k2_us * 1e6 / (32 * 16 * 256):.3f} ps per (row, "
+               f"lane), 256 lanes, 10-deep); plain {plain_ms:.3f} ms on "
+               f"{n_check} blocks; bound {b[0]:.4f} ms ({b[1]}); launches "
+               f"{launches}")
+    return probe_result("block_probe", "tools/probe_block_overhead.py:70",
+                        launches["block_probe"], 0.0, ms, plain_ms, b, None)
 
 
 if __name__ == "__main__":

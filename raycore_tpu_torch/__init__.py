@@ -12,6 +12,11 @@ CPU tensors. The ported slice is ``closest_hit`` and ``any_hit`` on a
 there), and the tile worklist (``closest_hit_dense_pallas*``,
 ``any_hit_dense_pallas_auto``) for smaller batches; plus the dense
 brute-force sweep for small meshes (``closest_hit_brute_pallas``).
+
+``raycore_tpu_torch.tools`` holds the card probes, the counterparts of the
+repository's TPU measurement tools (P1-P4): each is a hand-written kernel
+with its plain version and the tool's entry point. With them every TPU
+kernel of the JAX package has a counterpart here.
 """
 from .core.ray import Ray
 from .core.triangle import Triangle, fast_intersect_triangle, safe_invdir

@@ -49,6 +49,12 @@ _SIGNATURES = {
                              _F, _F, _P),
     "raycore_brute_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _P),
+    "raycore_gather_probe": (_P, _P, _P, _I, _I, _I, _P),
+    "raycore_epilogue_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _F, _P),
+    "raycore_matmul_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "raycore_block_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                            _P),
 }
 
 _lock = threading.Lock()

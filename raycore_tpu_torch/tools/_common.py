@@ -1,0 +1,77 @@
+"""What the card probes share: timing with CUDA events, the launch of one
+probe kernel through the kernel library, the plain versions' fused
+multiply-add, the acceptance slack and the bit-for-bit check."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+
+# Acceptance slack as float32 values, the tools' -e and 1 + e.
+EPS = float(np.float32(1e-5))
+ONE_EPS = float(np.float32(1 + 1e-5))
+
+
+def best_ms(fn, reps: int) -> float:
+    """Least device time in ms of one call of ``fn`` over ``reps`` timed
+    calls after one warm-up call (CUDA events around each call)."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's entry point ``raycore_<name>`` with ``args`` and
+    PyTorch's current stream on ``device``; raise on a CUDA error."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = getattr(lib, f"raycore_{name}")(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, name)
+
+
+def fma_rn(a, b, c):
+    """``a*b + c`` rounded once to float32, as the card's ``fmaf``. The
+    product of two float32 values is exact in float64; the sum is taken in
+    float64 rounded to odd (rounded to nearest, then moved one ulp toward
+    the exact sum where that leaves the last bit even), and a float64
+    rounded to odd rounds to float32 as the exact sum would. Rounding the
+    float64 sum to nearest instead can round twice: the exact sum just past
+    a float32 halfway point lands on it, then goes to even."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    # TwoSum: s + e == p + c exactly.
+    pp = s - c
+    e = (p - pp) + (c - (s - pp))
+    nudge = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.copysign(torch.full_like(s, math.inf), e)
+    return torch.where(nudge, torch.nextafter(s, toward), s).float()
+
+
+def check_equal(got, want, what: str) -> None:
+    """Raise unless the kernel's outputs (a tensor or a tuple of them)
+    equal the plain version's bit for bit."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: output {i} has shape "
+                                 f"{tuple(g.shape)}, plain {tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        n = int((g != w).sum())
+        if n:
+            raise AssertionError(f"{what}: {n} of {g.numel()} values of "
+                                 f"output {i} differ from the plain version")

@@ -192,3 +192,72 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_probe_tools_pull_in_no_jax():
+    """The card probes import no JAX and nothing of the JAX package."""
+    code = ("import sys\n"
+            "from raycore_tpu_torch.tools import gather_probe, "
+            "epilogue_experiments, probe_matmul_shapes, "
+            "probe_block_overhead\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'raycore_tpu.'))]\n"
+            "print('JAXMODS', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "JAXMODS []" in out.stdout
+
+
+def test_probe_wrappers_on_cpu_and_meta_tensors():
+    """The probes' wrappers take their plain versions for CPU tensors and
+    launch nothing; a tensor on neither the CPU nor a card raises."""
+    from raycore_tpu_torch.tools import epilogue_experiments as t_epi
+    from raycore_tpu_torch.tools import gather_probe as t_gather
+    from raycore_tpu_torch.tools import probe_block_overhead as t_block
+    from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
+    probes = (t_gather.run_gather, t_epi.run_epilogue, t_mm.run_matmul,
+              t_block.run_block)
+    for fn in probes:
+        fn.launches = 0
+    idx, tbl = t_gather.make_inputs(64, 2, device="cpu")
+    assert t_gather.run_gather(idx, tbl, "take").shape == (2, 128)
+    phi, feats, tmin, key0 = t_epi.make_inputs(16, n_tiles=2, device="cpu")
+    assert t_epi.run_epilogue(phi, feats, tmin, key0, TILE=16, n_blocks=2,
+                              variant="full").shape == (32, 1)
+    a, b = t_mm.operands(128, 16, 64, torch.float32, "cpu")
+    assert t_mm.run_matmul(a, b, 2, "high").shape == (128, 1)
+    tbl, feats, gen = t_block.make_inputs(n_sub=8, K=2, device="cpu")
+    subs, cids = t_block.block_ids(2, 8, 8, 2, gen)
+    assert t_block.run_block("full", 32, 8, subs, cids, tbl,
+                             feats)[0].shape == (512, 1)
+    assert [fn.launches for fn in probes] == [0] * 4
+    meta = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
+                                                      device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        t_gather.run_gather(meta(1024, dtype=torch.int32), meta(64, 128),
+                            "loop")
+    with pytest.raises(ValueError, match="CUDA"):
+        t_epi.run_epilogue(meta(32, 16), meta(2, 16, 512), meta(32, 1),
+                           meta(32, 1, dtype=torch.int32), TILE=16,
+                           n_blocks=2, variant="full")
+    with pytest.raises(ValueError, match="CUDA"):
+        t_mm.run_matmul(meta(128, 16), meta(16, 64), 2, "highest")
+    with pytest.raises(ValueError, match="CUDA"):
+        t_block.run_block("full", 32, 8, meta(16, dtype=torch.int32),
+                          meta(2, dtype=torch.int32), meta(9, 32, 16),
+                          meta(2, 16, 512))
+
+
+def test_probe_mains_need_the_card():
+    """Each probe's main() makes its tensors on the card and raises
+    without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the probes run for real")
+    from raycore_tpu_torch.tools import epilogue_experiments as t_epi
+    from raycore_tpu_torch.tools import gather_probe as t_gather
+    from raycore_tpu_torch.tools import probe_block_overhead as t_block
+    from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
+    for main in (t_gather.main, t_epi.main, t_mm.main, t_block.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main()

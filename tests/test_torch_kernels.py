@@ -14,6 +14,11 @@ from raycore_tpu_torch.kernels import _build
 from raycore_tpu_torch.ops import brute as ops_brute
 from raycore_tpu_torch.ops import dense as ops_dense
 from raycore_tpu_torch.ops import regroup as ops_regroup
+from raycore_tpu_torch.tools import epilogue_experiments as t_epi
+from raycore_tpu_torch.tools import gather_probe as t_gather
+from raycore_tpu_torch.tools import probe_block_overhead as t_block
+from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
+from raycore_tpu_torch.tools._common import check_equal
 
 pytestmark = pytest.mark.cuda
 
@@ -412,3 +417,143 @@ def test_kernel_build_is_cached(cuda):
     mtime = path.stat().st_mtime_ns
     assert _build.build() == path
     assert path.stat().st_mtime_ns == mtime
+
+
+# The card probes P1-P4 (raycore_tpu_torch/tools/).
+
+@pytest.mark.parametrize("prec,dtype", [("highest", torch.float32),
+                                        ("default", torch.float32),
+                                        ("high", torch.float32),
+                                        ("default", torch.bfloat16)])
+@pytest.mark.parametrize("M,K,N", [(256, 16, 128), (128, 128, 192)])
+def test_matmul_probe_kernel_matches_plain(cuda, M, K, N, prec, dtype):
+    """P3 at every tier against the plain version of that tier: the FMA
+    tier bit for bit, the tensor-core tiers within ACC_REL times the row's
+    sum of product magnitudes (``probe_matmul_shapes.tolerance``), a limit
+    that a kernel computing the neighbouring tier's product fails
+    (``tier_gap``, pinned on the CPU). Every step writes the same bits."""
+    a, b = t_mm.operands(M, K, N, dtype, cuda)
+    before = t_mm.run_matmul.launches
+    got = t_mm.run_matmul(a, b, 5, prec)
+    assert t_mm.run_matmul.launches == before + 1
+    want = t_mm.run_matmul_plain(a, b, 5, prec)
+    variant = t_mm.variant_of(prec, dtype)
+    if variant == "fma":
+        check_equal(got, want, "P3 fma")
+    else:
+        assert bool(((got - want).abs()
+                     <= t_mm.tolerance(a, b, variant)).all())
+    assert torch.equal(got, t_mm.run_matmul(a, b, 1, prec))
+
+
+def test_matmul_probe_leaves_allow_tf32(cuda):
+    """Neither the probe nor its library yardstick leaves
+    torch.backends.cuda.matmul.allow_tf32 changed."""
+    for flag in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        t_mm.probe(128, 16, 64, "default", steps=(4, 8), reps=1,
+                   device=cuda)
+        a, b = t_mm.operands(128, 16, 64, torch.float32, cuda)
+        for prec in ("highest", "default"):
+            t_mm.matmul_library(a, b, 4, prec)
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("variant", t_gather.VARIANTS)
+def test_gather_probe_kernel_matches_plain(cuda, variant):
+    """P1 on a (1008, 128) table (not a power of two) over 37 steps (not a
+    multiple of the 8 steps a loop CTA takes): within 2^-14 of the fetched
+    magnitudes (``gather_probe.tolerance``)."""
+    idx, tbl = t_gather.make_inputs(1008, 37, cuda, seed=3)
+    before = t_gather.run_gather.launches
+    got = t_gather.run_gather(idx, tbl, variant)
+    assert t_gather.run_gather.launches == before + 1
+    want = t_gather.run_gather_plain(idx, tbl, variant)
+    assert bool(((got - want).abs()
+                 <= t_gather.tolerance(idx, tbl, variant)).all())
+
+
+@pytest.mark.parametrize("same_tile", [False, True])
+@pytest.mark.parametrize("seed_key", ["tool", "finite"])
+@pytest.mark.parametrize("variant", t_epi.VARIANTS)
+def test_epilogue_probe_kernel_matches_plain(cuda, variant, seed_key,
+                                             same_tile):
+    """P2 on 6 tiles of 100 rows (not a warp multiple), 14 blocks: bit for
+    bit except where the approximate reciprocal enters
+    (``epilogue_experiments.check``); the finite seed accepts hits."""
+    phi, feats, tmin, key0 = t_epi.make_inputs(100, n_tiles=6, device=cuda)
+    if seed_key == "finite":
+        key0 = t_epi.finite_key0(key0.shape[0], device=cuda)
+    kw = dict(TILE=100, n_blocks=14, variant=variant, same_tile=same_tile)
+    before = t_epi.run_epilogue.launches
+    got = t_epi.run_epilogue(phi, feats, tmin, key0, **kw)
+    assert t_epi.run_epilogue.launches == before + 1
+    want = t_epi.run_epilogue_plain(phi, feats, tmin, key0, **kw)
+    t_epi.check(got, want, variant, "P2")
+    if same_tile:
+        assert bool((got[100:] == 0).all())
+    if variant in t_epi.ACCEPTING and seed_key == "finite":
+        assert bool((want[:100] != key0[:100]).any())
+
+
+@pytest.mark.parametrize("variant,G,SPB", t_block.CONFIGS
+                         + (("contig_tbl", 16, 8),))
+def test_block_probe_kernel_matches_plain(cuda, variant, G, SPB):
+    """P4 on 37 blocks, one with cid -1, from a 300-subgroup table of 32
+    clusters: key and lane bit for bit."""
+    tbl, feats, gen = t_block.make_inputs(n_sub=300, K=32, device=cuda,
+                                          seed=4)
+    tbl = tbl[:, :G].contiguous()
+    subs, cids = t_block.block_ids(37, SPB, 300, 32, gen)
+    cids[5] = -1
+    tblc = torch.randn((37, G * SPB, 16), generator=gen, device=cuda)
+    before = t_block.run_block.launches
+    got = t_block.run_block(variant, G, SPB, subs, cids, tbl, feats, tblc)
+    assert t_block.run_block.launches == before + 1
+    want = t_block.run_block_plain(variant, G, SPB, subs, cids, tbl, feats,
+                                   tblc)
+    check_equal(got, want, f"P4 {variant}")
+    hits = want[0] != INT32_MAX
+    assert bool(hits.any()) and (variant == "mm_only" or not hits.all())
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """A CPU operand beside a CUDA one, a wrong dtype or a shape the
+    kernel does not take raises; nothing falls back to the plain version."""
+    a, b = t_mm.operands(128, 16, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_mm.run_matmul(a, b.cpu(), 2, "highest")
+    with pytest.raises(TypeError):
+        t_mm.run_matmul(a, b.to(torch.bfloat16), 2, "highest")
+    with pytest.raises(TypeError):
+        t_mm.run_matmul(a.double(), b.double(), 2, "highest")
+    with pytest.raises(ValueError, match="shapes"):
+        t_mm.run_matmul(a[:100].contiguous(), b, 2, "highest")
+    idx, tbl = t_gather.make_inputs(64, 2, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_gather.run_gather(idx, tbl.cpu(), "loop")
+    with pytest.raises(TypeError):
+        t_gather.run_gather(idx.long(), tbl, "take")
+    with pytest.raises(ValueError, match="NN % 16"):
+        t_gather.run_gather(idx, tbl[:60].contiguous(), "onehot")
+    phi, feats, tmin, key0 = t_epi.make_inputs(32, n_tiles=2, device=cuda)
+    kw = dict(TILE=32, n_blocks=2, variant="full")
+    with pytest.raises(ValueError, match="CUDA"):
+        t_epi.run_epilogue(phi, feats.cpu(), tmin, key0, **kw)
+    with pytest.raises(TypeError):
+        t_epi.run_epilogue(phi, feats, tmin, key0.float(), **kw)
+    with pytest.raises(ValueError, match="TILE"):
+        t_epi.run_epilogue(phi, feats, tmin, key0, TILE=48, n_blocks=2,
+                           variant="full")
+    tbl, feats, gen = t_block.make_inputs(n_sub=16, K=4, device=cuda)
+    subs, cids = t_block.block_ids(2, 8, 16, 4, gen)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_block.run_block("full", 32, 8, subs.cpu(), cids, tbl, feats)
+    with pytest.raises(TypeError):
+        t_block.run_block("full", 32, 8, subs.long(), cids, tbl, feats)
+    with pytest.raises(ValueError, match="missing"):
+        t_block.run_block("contig_tbl", 32, 8, subs, cids, tbl, feats)
+    with pytest.raises(ValueError, match="1024"):
+        t_block.run_block("full", 32, 64, t_block.block_ids(
+            2, 64, 16, 4, gen)[0], cids, tbl, feats)
