@@ -67,6 +67,10 @@ Every query path (phases 6 and 8-14) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
 its phase-A inputs, and its sweep kernel (K2-K6) on its own blocks or
 rays. Every kernel that a path does not name must not launch on it.
+Phases 8-11 also hold K3 and K4 bit for bit against their kernel-order
+model (ops/dense.py:kernel_order_hits) on SAMPLE_TILES sampled tiles with
+all their blocks, and phase 11 counts K4's tests per warp beside the
+tests its rays need.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -123,10 +127,13 @@ PEAK_HBM_BYTES = 3.35e12
 # The tensor cores' dense peaks (the probes' mma.sync variants).
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
-# One featurized (ray, triangle) test: four 10-deep dots, 40 fused
-# multiply-adds = 80 floating-point operations. The epilogue (reciprocal,
-# three products, compares) is not counted, so the bound stays a floor.
-TEST_FLOPS = 80
+# One featurized (ray, triangle) test: the 19 nonzero terms of its four
+# dots (det rows 0-2, u*det and v*det rows 0-5, t*det rows 6-9; the other
+# 21 coefficients of the 10-deep dots are zero by construction), 19 fused
+# multiply-adds = 38 floating-point operations, the work these inputs need
+# in K2-K5. The epilogue (reciprocal, three products, compares) is not
+# counted, so the bound stays a floor.
+TEST_FLOPS = 38
 # One slab test of a ray against a sub-chunk's box: per axis two
 # differences and two products (the min/max are not counted).
 SLAB_FLOPS = 12
@@ -150,6 +157,9 @@ BRUTE_SUBSET = 16384
 GATHER_SHAPE = (8192, 2048)
 EPILOGUE_SHAPE = (512, 8192)
 PROBE_BLOCKS = 8192
+# Tiles of each worklist cell (phases 8-11) that K3 and K4 are held to
+# their kernel-order model on, with all their blocks.
+SAMPLE_TILES = 16
 
 
 def say(phase, msg):
@@ -260,9 +270,9 @@ def nbytes(*tensors):
 
 
 def table_bytes(cids, C):
-    """Bytes of the feature rows a sweep reads once: the 10 nonzero rows of
-    each distinct cluster's (16, 4C) float32 table."""
-    return int(torch.unique(cids).numel()) * 10 * 4 * C * 4
+    """Bytes of the feature table a sweep must read once: the 19 C nonzero
+    float32 coefficients of each distinct cluster's (16, 4C) table."""
+    return int(torch.unique(cids).numel()) * 19 * C * 4
 
 
 def shadow_rays(rt, res, o, d, light):
@@ -783,8 +793,8 @@ def sweep_check(what, stage1, kernel, plain, scene, rows, TILE, G, SPB,
     """A closest-hit sweep kernel (K2 or K5) against its plain version on
     the blocks ``stage1`` builds from ``rows`` (padded to whole tiles) in
     blocks of SPB subgroups; the bound of that sweep: each row tests C_eff
-    lanes, and the table read once is the 10 nonzero feature rows of each
-    distinct (sub-)cluster's slice. ``kernel`` and ``plain`` take
+    lanes, and the table read once is the 19 C_eff nonzero coefficients of
+    each distinct (sub-)cluster's slice. ``kernel`` and ``plain`` take
     (block_subs, block_cid, tbl, feats). Returns a dict: the kernel and its
     plain version on these blocks (``run``, ``run_plain``), the kernel's
     output and arguments, blocks, error, bound and a description."""
@@ -834,9 +844,9 @@ def regroup_occlusion_check(ops_dense, ops_regroup, rt, scene, rays):
 
 def worklist_sweep_phase(phase, ops_dense, scene, rays, plain_reps=3):
     """K1 and K3 against their plain versions on a query's own operands,
-    K3 seeded from t_max; K3's times and its bound from the (block,
-    sub-chunk) tests the plain version counts. Returns a dict of the
-    numbers."""
+    K3 seeded from t_max; K3 bit for bit against its kernel-order model
+    on sampled tiles; K3's times and its bound from the (block, sub-chunk) tests the plain
+    version counts. Returns a dict of the numbers."""
     o, d, t_min, t_max = ops_dense.flat_rays(rays)
     TILE = ops_dense._tile_of(rays, 512)
     phase_a_check(f"K1 (phase {phase})", ops_dense, scene,
@@ -853,6 +863,9 @@ def worklist_sweep_phase(phase, ops_dense, scene, rays, plain_reps=3):
     torch.cuda.synchronize()
     rows, plain_hits, flips, pair_diff, err, rel = compare_sweeps(
         f"K3 (sub_chunks={SUB})", kk, pk, kp, pp, bits)
+    model = model_check(
+        f"K3 (phase {phase})", ops_dense, tids, TILE, phase, (kk, pk),
+        lambda tiles: ops_dense.run_worklist_model(*args, **kw, tiles=tiles))
     ms = cuda_ms(lambda: ops_dense.run_worklist(*args, **kw), 10)
     plain_ms = cuda_ms(lambda: ops_dense.run_worklist_plain(*args, **kw),
                        plain_reps)
@@ -871,10 +884,38 @@ def worklist_sweep_phase(phase, ops_dense, scene, rays, plain_reps=3):
                f"C {C}, SUB {SUB}): {n} blocks, {rows} rows, {plain_hits} "
                f"plain hits; hit-mask flips {flips}, pair differences "
                f"{pair_diff} (0 where the keys are equal), max rel t "
-               f"{rel:.3g}{skip}; kernel {ms:.3f} ms plain {plain_ms:.3f} "
-               f"ms bound {b[0]:.4f} ms ({b[1]})")
+               f"{rel:.3g}{skip}; {model}; kernel {ms:.3f} ms plain "
+               f"{plain_ms:.3f} ms bound {b[0]:.4f} ms ({b[1]})")
     return dict(blocks=n, bits=bits, err=err, ms=ms, plain_ms=plain_ms,
                 bound=b)
+
+
+def model_check(what, ops_dense, tids, TILE, phase, got, model):
+    """A sweep kernel's outputs ``got`` (a tensor or a tuple) bit for bit
+    against its kernel-order model ``model(tiles)`` on SAMPLE_TILES tiles
+    drawn with a seed (the tile with the most blocks among them), all
+    their blocks. Returns a description."""
+    got = got if isinstance(got, tuple) else (got,)
+    n_tiles = got[0].numel() // TILE
+    counts = torch.bincount(tids.long(), minlength=n_tiles)
+    rng = np.random.default_rng(SEED + 100 + phase)
+    pick = set(rng.choice(n_tiles, min(SAMPLE_TILES, n_tiles),
+                          replace=False).tolist())
+    pick.add(int(counts.argmax()))
+    tiles = torch.tensor(sorted(pick), device=tids.device)
+    want = model(tiles)
+    want = want if isinstance(want, tuple) else (want,)
+    rows = ops_dense.tile_rows(tiles, TILE)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        n = int((g[rows] != w).sum())
+        if n:
+            raise AssertionError(f"{what}: {n} of {w.numel()} outputs on "
+                                 f"{tiles.numel()} sampled tiles differ from "
+                                 f"the kernel-order model")
+    return (f"bit for bit equal to the kernel-order model on "
+            f"{tiles.numel()} sampled tiles ({int(counts[tiles].sum())} "
+            f"blocks, {rows.numel()} rays)")
 
 
 def oracle_sample_phase(phase, rt, scene, o, d, res, diag, tie, rng):
@@ -904,8 +945,9 @@ def oracle_sample_phase(phase, rt, scene, o, d, res, diag, tie, rng):
 def occlusion_sweep_phase(ops_dense, scene, rays):
     """K1 (bitwise) and K4 against their plain versions on the operands
     any_hit builds for ``rays`` at tile 512: every occluder equal (at most
-    1e-5 of rows may differ); K4's times and a bound from the tests this
-    data needs."""
+    1e-5 of rows may differ); K4 bit for bit against its kernel-order
+    model on sampled tiles; K4's tests per warp; K4's times and a bound
+    from the tests this data needs."""
     o, d, t_min, t_max = ops_dense.flat_rays(rays)
     TILE = ops_dense._tile_of(rays, 512)
     phase_a_check("K1 worklist any_hit", ops_dense, scene,
@@ -922,16 +964,56 @@ def occlusion_sweep_phase(ops_dense, scene, rays):
     if diff > 1e-5 * pk.numel():
         raise AssertionError(f"K4: {diff} occluders differ from the plain "
                              f"version (> 1e-5 of {pk.numel()} rows)")
+    model = model_check(
+        "K4 (phase 11)", ops_dense, tids, TILE, 11, pk,
+        lambda tiles: ops_dense.run_occlusion_model(*args, **kw,
+                                                    tiles=tiles))
     ms = cuda_ms(lambda: ops_dense.run_occlusion(*args, **kw), 10)
     plain_ms = cuda_ms(lambda: ops_dense.run_occlusion_plain(*args, **kw), 3)
     tests = occlusion_tests(ops_dense, tids, cids, pp, TILE, C,
                             scene.n_clusters)
+    W = 32   # one ray a thread
+    group_tests, warp_tests = occlusion_warp_tests(
+        ops_dense, tids, cids, pk, TILE, C, scene.n_clusters, W)
+    say(11, f"K4 {model}; tests on this data: {tests} that the rays need, "
+            f"{group_tests} in whole lane groups of 4, {warp_tests} that "
+            f"warps of {W} rays run ({1 - group_tests / warp_tests:.4f} of "
+            f"them for rays already done)")
     b = bound(nbytes(*args[:3], tmin, tmax, pk) + table_bytes(cids, C),
               tests * TEST_FLOPS)
     # An occluder id is right or wrong: the error of a row is 1 where the
     # kernel's id differs from the plain version's, else 0.
     return dict(blocks=cids.numel(), diff=diff, err=float(diff > 0), ms=ms,
-                plain_ms=plain_ms, bound=b, tests=tests)
+                plain_ms=plain_ms, bound=b, tests=tests,
+                group_tests=group_tests, warp_tests=warp_tests)
+
+
+def occlusion_warp_tests(ops_dense, tids, cids, pair, TILE, C, K, W):
+    """K4's tests on this data as its warps run them. Per block, a ray
+    tests lane groups of 4 until the group of its first accepted lane (all
+    C / 4 groups while it stays free, none once it is occluded); a warp of
+    W rays runs as many groups as its busiest ray, and each of its rays
+    pays for them. Returns (the rays' tests in whole groups, the warps'
+    tests)."""
+    R = pair.numel()
+    n_tiles = R // TILE
+    dev = pair.device
+    start = ops_dense.tile_ranges(tids, n_tiles).long()
+    t, c = tids.long(), cids.long()
+    j = torch.arange(t.numel(), device=dev) - start[t]
+    pos = torch.zeros((n_tiles, K), dtype=torch.long, device=dev)
+    pos[t, c] = j
+    tile = torch.arange(R, device=dev) // TILE
+    p = pair.long()
+    occ_pos = torch.where(p >= 0, pos[tile, p.clamp_min(0) // C], t.numel())
+    occ_groups = (p.clamp_min(0) % C) // 4 + 1
+    rows = t[:, None] * TILE + torch.arange(TILE, device=dev)
+    op = occ_pos[rows]
+    need = torch.where(j[:, None] < op, C // 4,
+                       torch.where(j[:, None] == op, occ_groups[rows], 0))
+    need = torch.nn.functional.pad(need, (0, (-TILE) % W))
+    warp = need.reshape(need.shape[0], -1, W).amax(dim=2)
+    return int(need.sum()) * 4, int(warp.sum()) * 4 * W
 
 
 def packed_phase(phase, rt, ops_dense, ops_regroup, scene, rays, query, res,

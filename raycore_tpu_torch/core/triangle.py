@@ -6,17 +6,16 @@ The reference evaluates every cross product and 3-term dot product with
 fused multiply-adds: its CPU compiler turns ``a1*b2 - a2*b1`` into
 ``fma(a1, b2, -(a2*b1))`` and a sum of three products into the chain
 ``fma(a2, b2, fma(a1, b1, a0*b0))``. ``cross`` and ``dot3`` below evaluate
-the same chains: each fused step forms the exact float32 product in
-float64, adds there and rounds to float32. That is a true fused
-multiply-add except where the float64 sum lands exactly halfway between
-two float32 values (double rounding), so the results match the
-reference's bit for bit in all but such rare cases. The one-time build
-tables (accel/dense.py) and the brute-force oracle use them; the
+the same chains with ``fma``, a fused multiply-add rounded once to
+float32 as the reference's and the card's are, so the results match the
+reference's bit for bit. The one-time build tables (accel/dense.py), the
+brute-force oracle and the plain models of the sweep kernels use them; the
 per-query code (ray features, the exact finalize) runs in plain float32.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -70,8 +69,23 @@ class Triangle:
 
 
 def fma(a, b, c):
-    """``a*b + c`` rounded once to float32 (exact product in float64)."""
-    return (a.double() * b.double() + c.double()).float()
+    """``a*b + c`` rounded once to float32, as the card's ``fmaf`` and
+    XLA's fused multiply-add. The product of two float32 values is exact in
+    float64; the sum is taken in float64 rounded to odd (rounded to
+    nearest, then moved one ulp toward the exact sum where that leaves the
+    last bit even), and a float64 rounded to odd rounds to float32 as the
+    exact sum would. Rounding the float64 sum to nearest instead can round
+    twice: the exact sum just past a float32 halfway point lands on it,
+    then goes to even."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    # TwoSum: s + e == p + c exactly.
+    pp = s - c
+    e = (p - pp) + (c - (s - pp))
+    nudge = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.copysign(torch.full_like(s, math.inf), e)
+    return torch.where(nudge, torch.nextafter(s, toward), s).float()
 
 
 def cross(a, b):

@@ -11,22 +11,25 @@
 // [edge_lo, edge_hi] and t in [tmin, tmax], the ray's own range. The
 // result is the occluder pair cid * C + lane, -1 for a free ray.
 //
-// What bounds it on this card: arithmetic, as the closest-hit sweeps (40
+// What bounds it on this card: arithmetic, as the closest-hit sweeps (19
 // fused multiply-adds per (ray, triangle) test at the 67 TFLOP/s
 // non-tensor float32 rate), but only for the tests a ray needs: up to its
 // first accepted lane.
 //
 // Design: one CTA per ray tile and one thread per ray, walking the tile's
-// blocks in worklist order with the cluster table staged in shared memory
-// (40 KB at C = 256; above 48 KB the opt-in attribute). Before each block a
-// __syncthreads_or over "still free" ends the walk once the whole tile is
-// occluded (the reference skips those blocks one by one). A thread whose
-// ray is occluded runs no lanes; a free ray stops at its first accepted
-// lane in ascending order. Neither shortcut changes the result. Unlike the
-// reference, which reads columns k * C + j, the kernel reads the
-// sub-chunk-major layout (column s * 4CS + k * CS + j), so scenes with
-// sub_chunks > 1 report genuine occluders; for sub_chunks == 1 the two
-// are the same column.
+// blocks in worklist order with the cluster's 19 nonzero table rows staged
+// in shared memory (stage_sparse_table) and read as broadcasts, each
+// feeding 4 fused multiply-adds (sparse_quads); a warp skips the divisions
+// of a lane group when quick_reject shows every one of its tests must fail
+// (maybe_lanes; all in featurized.cuh, bit for bit with the 10-deep
+// kernel). Before each block a __syncthreads_or over "still free" ends the
+// walk once the whole tile is occluded (the reference skips those blocks
+// one by one). A thread whose ray is occluded runs no lanes; a free ray
+// stops at its first accepted lane in ascending order. Neither shortcut
+// changes the result. Unlike the reference, which reads columns k * C + j,
+// the kernel reads the sub-chunk-major layout (column s * 4CS + k * CS +
+// j), so scenes with sub_chunks > 1 report genuine occluders; for
+// sub_chunks == 1 the two are the same column.
 
 #include "featurized.cuh"
 
@@ -40,7 +43,7 @@ __global__ void occlusion_sweep_kernel(
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     int* __restrict__ pair_out, int TILE, int C, int SUB, float edge_lo,
     float edge_hi) {
-  extern __shared__ float4 table4[];   // (KFEAT, 4C) floats as float4
+  extern __shared__ float4 table4[];   // SPARSE_TERMS float4s a lane group
   const int tile = blockIdx.x;
   const size_t row = (size_t)tile * TILE + threadIdx.x;
   const int b0 = tile_start[tile];
@@ -49,6 +52,8 @@ __global__ void occlusion_sweep_kernel(
   load_phi(phi + row * FEAT, ph);
   const float t_min = tmin[row];
   const float t_max = tmax[row];
+  const bool tmin_nonneg = t_min >= 0.f;
+  const bool live = finite_features(ph);   // else no lane can pass
   const int CS = C / SUB;
   const int CS4 = CS / 4;
   int pair = -1;
@@ -57,18 +62,24 @@ __global__ void occlusion_sweep_kernel(
     // Also the barrier after the previous block's table reads.
     if (!__syncthreads_or(pair < 0)) break;   // the whole tile is occluded
     const int cid = cids[b];
-    stage_table(table4, feats, cid, C);
+    stage_sparse_table(table4, feats, cid, C, CS);
     __syncthreads();
-    if (pair >= 0) continue;
+    if (!live || pair >= 0) continue;
     int lane = -1;
     for (int s = 0; s < SUB && lane < 0; ++s) {
       for (int c4 = 0; c4 < CS4 && lane < 0; ++c4) {
         float q[4][4];
-        featurized_quads(table4, C, s * CS, CS4, c4, ph, q);
+        sparse_quads(table4 + (size_t)(s * CS4 + c4) * SPARSE_TERMS, ph, q);
+        const unsigned may = maybe_lanes(q, tmin_nonneg);
+        // Threads leave these loops at different lane groups, so the vote
+        // may cover part of the warp. A thread skips only when the vote,
+        // its own included, is false: then every lane of its own is
+        // refused and the skip changes nothing for it.
+        if (!__any_sync(__activemask(), may != 0)) continue;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float t;
-          if (lane < 0 &&
+          if (((may >> j) & 1u) && lane < 0 &&
               mt_accept(q, j, edge_lo, edge_hi, t_min, t_max, &t)) {
             lane = s * CS + c4 * 4 + j;
           }
@@ -86,14 +97,17 @@ extern "C" {
 
 // tile_start (n_tiles + 1,) int32; cids (n_blocks,) int32; phi (R, 16)
 // float32 with R = n_tiles * TILE; feats (K, 16, 4C) float32; tmin, tmax
-// (R,) float32; pair_out (R,) int32. Needs TILE <= 1024, (C / SUB) % 4 == 0
-// and 16-byte aligned phi and feats. Returns cudaGetLastError().
+// (R,) float32; pair_out (R,) int32. Needs TILE <= 1024, (C / SUB) % 4 == 0,
+// 16-byte aligned phi and feats, and the slack quick_reject assumes
+// (REJECT_EDGE_LO, REJECT_EDGE_HI). Returns cudaGetLastError().
 int raycore_occlusion_sweep(const void* tile_start, const void* cids,
                             const void* phi, const void* feats,
                             const void* tmin, const void* tmax, void* pair_out,
                             int n_tiles, int TILE, int C, int SUB,
                             float edge_lo, float edge_hi, void* stream) {
-  const size_t smem = sizeof(float) * KFEAT * 4 * (size_t)C;
+  if (edge_lo < REJECT_EDGE_LO || edge_hi > REJECT_EDGE_HI)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * SPARSE_TERMS * (size_t)C;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         occlusion_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

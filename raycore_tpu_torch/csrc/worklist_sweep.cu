@@ -17,24 +17,28 @@
 // skips the sub-chunk when no ray of the tile enters it. Tiles with no
 // block write key0 / pair0 unchanged.
 //
-// What bounds it on this card: arithmetic. Each (ray, triangle) test is 40
-// fused multiply-adds (four 10-deep dots) plus an IEEE reciprocal and the
-// compares, and a query makes blocks x TILE x C of them: at the 67 TFLOP/s
-// non-tensor float32 rate at most 0.84 T tests per second. Memory traffic
-// is a 40 KB cluster table per block (from L2 for clusters shared by
-// neighbouring tiles) and 64 bytes of ray features per ray.
+// What bounds it on this card: arithmetic. Each (ray, triangle) test needs
+// 19 fused multiply-adds (the nonzero terms of four dots) and, where it may
+// pass, an IEEE reciprocal and the compares; a query makes blocks x TILE x
+// C of them: at the 67 TFLOP/s non-tensor float32 rate at most 1.76 T
+// tests per second. Memory traffic is a 19 KB cluster table per block
+// (from L2 for clusters shared by neighbouring tiles) and 64 bytes of ray
+// features per ray.
 //
 // Design: one CTA per ray tile and one thread per ray (TILE <= 1024, any
 // size: a 1-ray query runs TILE = 8). The CTA walks its tile's blocks in
 // worklist order, keeping (key, pair) in registers, so there is no merge
 // across CTAs and no atomic: the reference's order of merges, which the
-// truncated keys make visible, is kept exactly. Per block the cluster's
-// 10 x 4C table slice is staged in shared memory (40 KB at C = 256; above
-// 48 KB the opt-in attribute) and read as broadcast float4s. Columns are
-// sub-chunk-major: quantity k of lane j in sub-chunk s is column
-// s * 4CS + k * CS + j. The slab test uses explicitly rounded operations
-// and NaN-propagating min/max in the plain version's order, since its
-// skip decision changes results (the featurized test has edge slack).
+// truncated keys make visible, is kept exactly. The SUB > 1 slab skip ORs
+// over every ray of the tile, so a tile stays one CTA. Per block the
+// cluster's 19 nonzero table rows are staged in shared memory, 19 float4s
+// per lane group (stage_sparse_table), and read as broadcasts, each
+// feeding 4 fused multiply-adds (sparse_quads); a warp skips the divisions
+// of a lane group when quick_reject shows every one of its tests must fail
+// (maybe_lanes). The result is the 10-deep kernel's, bit for bit
+// (featurized.cuh). The slab test uses explicitly rounded operations and
+// NaN-propagating min/max in the plain version's order, since its skip
+// decision changes results (the featurized test has edge slack).
 
 #include "featurized.cuh"
 
@@ -49,7 +53,7 @@ __global__ void worklist_sweep_kernel(
     const int* __restrict__ key0, const int* __restrict__ pair0,
     int* __restrict__ key_out, int* __restrict__ pair_out, int TILE, int C,
     int SUB, int bits, float edge_lo, float edge_hi, float clamp) {
-  extern __shared__ float4 table4[];   // (KFEAT, 4C) floats as float4
+  extern __shared__ float4 table4[];   // SPARSE_TERMS float4s a lane group
   const int tile = blockIdx.x;
   const size_t row = (size_t)tile * TILE + threadIdx.x;
   const int b0 = tile_start[tile];
@@ -63,6 +67,8 @@ __global__ void worklist_sweep_kernel(
   const float o[3] = {prow[6], prow[7], prow[8]};
   const float invd[3] = {prow[10], prow[11], prow[12]};
   const float t_min = tmin[row];
+  const bool tmin_nonneg = t_min >= 0.f;
+  const bool live = finite_features(ph);   // else no lane can pass
   const int mask = (1 << bits) - 1;
   const int CS = C / SUB;
   const int CS4 = CS / 4;
@@ -70,7 +76,7 @@ __global__ void worklist_sweep_kernel(
   for (int b = b0; b < b1; ++b) {   // b0, b1 are uniform over the CTA
     const int cid = cids[b];
     __syncthreads();                 // the previous block's reads are done
-    stage_table(table4, feats, cid, C);
+    stage_sparse_table(table4, feats, cid, C, CS);
     __syncthreads();
     const float* sb = sub_bounds + (size_t)cid * 128;
     for (int s = 0; s < SUB; ++s) {
@@ -94,13 +100,18 @@ __global__ void worklist_sweep_kernel(
       int kmin = INT_MAX;
       for (int c4 = 0; c4 < CS4; ++c4) {
         float q[4][4];
-        featurized_quads(table4, C, s * CS, CS4, c4, ph, q);
+        sparse_quads(table4 + (size_t)(s * CS4 + c4) * SPARSE_TERMS, ph, q);
+        const unsigned may = live ? maybe_lanes(q, tmin_nonneg) : 0u;
+        // A thread skips only when the vote, its own included, is false:
+        // then every lane of its own is refused and the skip changes
+        // nothing for it.
+        if (!__any_sync(__activemask(), may != 0)) continue;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float t;
-          if (mt_accept(q, j, edge_lo, edge_hi, t_min, cur_t, &t)) {
-            const int kc = (t_key(t) & ~mask) | (c4 * 4 + j);
-            kmin = min(kmin, kc);
+          if (((may >> j) & 1u) &&
+              mt_accept(q, j, edge_lo, edge_hi, t_min, cur_t, &t)) {
+            kmin = min(kmin, (t_key(t) & ~mask) | (c4 * 4 + j));
           }
         }
       }
@@ -121,8 +132,9 @@ extern "C" {
 // tile_start (n_tiles + 1,) int32; cids (n_blocks,) int32; phi (R, 16)
 // float32 with R = n_tiles * TILE; feats (K, 16, 4C) float32; sub_bounds
 // (K, 1, 128) float32; tmin (R,) float32; key0, pair0, key_out, pair_out
-// (R,) int32. Needs TILE <= 1024, (C / SUB) % 4 == 0 and 16-byte aligned
-// phi and feats. Returns cudaGetLastError().
+// (R,) int32. Needs TILE <= 1024, (C / SUB) % 4 == 0, 16-byte aligned
+// phi and feats, and the slack quick_reject assumes (REJECT_EDGE_LO,
+// REJECT_EDGE_HI). Returns cudaGetLastError().
 int raycore_worklist_sweep(const void* tile_start, const void* cids,
                            const void* phi, const void* feats,
                            const void* sub_bounds, const void* tmin,
@@ -130,7 +142,9 @@ int raycore_worklist_sweep(const void* tile_start, const void* cids,
                            void* pair_out, int n_tiles, int TILE, int C,
                            int SUB, int bits, float edge_lo, float edge_hi,
                            float clamp, void* stream) {
-  const size_t smem = sizeof(float) * KFEAT * 4 * (size_t)C;
+  if (edge_lo < REJECT_EDGE_LO || edge_hi > REJECT_EDGE_HI)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * SPARSE_TERMS * (size_t)C;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         worklist_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -11,6 +11,12 @@ plain PyTorch version on CPU tensors (the tensor's device alone decides):
 - K4 ``run_occlusion`` (``csrc/occlusion_sweep.cu``, plain
   ``run_occlusion_plain``): the tile-worklist any-hit sweep.
 
+The plain sweeps take the featurized test as a ``torch.bmm`` product, as
+the JAX package's matrix product does. ``kernel_order_hits`` evaluates it
+as K3 and K4 do, bit for bit (19-term FMA chains, the division-free
+reject, the rounded epilogue); ``run_worklist_model`` and
+``run_occlusion_model`` run the plain sweeps through it on chosen tiles.
+
 The drivers keep the JAX names, ``_pallas`` included: stripped,
 ``closest_hit_dense_pallas`` would collide with the XLA rounds engine's
 ``closest_hit_dense``. The worklist is exact, sized by ``nonzero``: there
@@ -23,14 +29,27 @@ import torch
 
 from ..accel.brute import HitResult
 from ..accel.dense import finalize_hits_exact, prim_only_hits, ray_features
-from ..core.triangle import INV_DIR_CLAMP, safe_invdir
+from ..core.triangle import INV_DIR_CLAMP, fma, safe_invdir
 from ..kernels import _build
 
 FEAT = 16
 INT32_MAX = 0x7FFFFFFF
+INT32_MIN = -0x80000000
 EDGE_EPS = 1e-5   # barycentric acceptance slack of the featurized test
 # The plain sweeps' product chunk: 2^27 float32 elements (512 MiB).
 PLAIN_CHUNK_ELEMS = 1 << 27
+# The feature rows that K3's and K4's fused multiply-add chain reads for
+# each quantity, ascending: det rows 0-2, u*det and v*det rows 0-5, t*det
+# rows 6-9 (accel/dense.py:_featurize_tris leaves every other row of its
+# column zero). DENSE_ROWS is the 10-deep chain of K2 and K5.
+SPARSE_ROWS = ((0, 1, 2), (0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5),
+               (6, 7, 8, 9))
+DENSE_ROWS = (tuple(range(10)),) * 4
+# The division-free reject's constants as float32 (csrc/featurized.cuh:
+# quick_reject, which states why they are safe).
+REJECT_MARGIN = 2e-5
+REJECT_SUM = 1.0001
+REJECT_DET_RANGE = (2.0 ** -60, 2.0 ** 60)
 
 
 def _idx_bits(CS: int) -> int:
@@ -221,6 +240,95 @@ def _featurized_hits(phi, feats, tmin, tmax):
     return ok, t
 
 
+def _f32(x, device):
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def quick_reject(det, udet, vdet, tdet, tmin_nonneg):
+    """The division-free reject of K3 and K4 (``csrc/featurized.cuh:
+    quick_reject``), elementwise on float32 quantities: True where the
+    exact epilogue cannot accept. With |det| in REJECT_DET_RANGE and the
+    signs of u*det, v*det and t*det turned by det's: u*det or v*det below
+    -REJECT_MARGIN |det|, their sum above REJECT_SUM |det|, or t*det
+    below -REJECT_MARGIN |det| on a ray with t_min >= 0 (``tmin_nonneg``,
+    broadcast against the quantities). NaN, zero, subnormal and huge det
+    never reject."""
+    dev = det.device
+    a = det.abs()
+    sign = det.view(torch.int32) & INT32_MIN
+    turn = lambda x: (x.view(torch.int32) ^ sign).view(torch.float32)
+    su, sv, st = turn(udet), turn(vdet), turn(tdet)
+    p = a * _f32(REJECT_MARGIN, dev)
+    q = a * _f32(REJECT_SUM, dev)
+    lo, hi = REJECT_DET_RANGE
+    return (a >= _f32(lo, dev)) & (a <= _f32(hi, dev)) & (
+        (su < -p) | (sv < -p) | (su + sv > q) | ((st < -p) & tmin_nonneg))
+
+
+def kernel_order_quads(phi, feats, rows):
+    """(det, u*det, v*det, t*det), each (n, TILE, CS), of ray tiles phi
+    (n, TILE, 16) against column blocks feats (n, 16, 4 CS) as the sweep
+    kernels chain them: quantity k a chain of fused multiply-adds rounded
+    once (``core.triangle.fma``) over ``rows[k]`` ascending, from
+    fma(phi_f0, w_f0, 0)."""
+    CS = feats.shape[2] // 4
+    n, TILE = phi.shape[:2]
+    q = []
+    for k, rk in enumerate(rows):
+        w = feats[:, :, k * CS:(k + 1) * CS]
+        acc = torch.zeros((n, TILE, CS), dtype=torch.float32,
+                          device=phi.device)
+        for f in rk:
+            acc = fma(phi[:, :, f, None], w[:, None, f, :], acc)
+        q.append(acc)
+    return tuple(q)
+
+
+def exact_epilogue(det, udet, vdet, tdet, tmin, tmax):
+    """The kernels' exact acceptance (``csrc/featurized.cuh:mt_accept``):
+    the reciprocal of det, u, v and t its products and u + v, each rounded
+    once in float32; slack EDGE_EPS, t in [tmin, tmax] (broadcast). Returns
+    (ok, t)."""
+    r = 1.0 / det
+    u, v, t = udet * r, vdet * r, tdet * r
+    e = EDGE_EPS
+    ok = (u >= -e) & (u <= 1.0 + e) & (v >= -e) & (u + v <= 1.0 + e) \
+        & (t >= tmin) & (t <= tmax)
+    return ok, t
+
+
+def kernel_order_hits(phi, feats, tmin, tmax, *, sparse=True):
+    """``_featurized_hits`` computed as K3 and K4 compute it, bit for bit:
+    ``kernel_order_quads`` over SPARSE_ROWS, where a ray with a non-finite
+    feature among rows 0-9 accepts nothing (a zero coefficient the 10-deep
+    chain multiplies turns such a feature into a NaN that rejects) and
+    ``quick_reject`` runs before ``exact_epilogue``. ``sparse=False``: over
+    DENSE_ROWS with neither, the kernels before their redesign."""
+    q = kernel_order_quads(phi, feats, SPARSE_ROWS if sparse else DENSE_ROWS)
+    ok, t = exact_epilogue(*q, tmin[..., None], tmax[..., None])
+    if sparse:
+        finite = torch.isfinite(phi[:, :, :10]).all(dim=2)
+        ok &= finite[..., None] & ~quick_reject(*q, (tmin >= 0)[..., None])
+    return ok, t
+
+
+def tile_rows(tiles, TILE: int):
+    """Ray rows of the tiles ``tiles`` (int64), tile by tile."""
+    return (tiles[:, None] * TILE
+            + torch.arange(TILE, device=tiles.device)).reshape(-1)
+
+
+def _tile_subset(tids, cids, tiles, TILE: int):
+    """The blocks of the ascending tile ids ``tiles``, renumbered to
+    positions in ``tiles``, and those tiles' ray rows."""
+    tiles = tiles.long()
+    pos = torch.searchsorted(tiles, tids.long())
+    keep = (pos < tiles.numel()) \
+        & (tiles[pos.clamp_max(max(tiles.numel() - 1, 0))] == tids.long())
+    return (pos[keep].to(torch.int32), cids[keep].contiguous(),
+            tile_rows(tiles, TILE))
+
+
 def _slab_live(phi, sb, tmin, cur_t):
     """Per-ray slab test of ray tiles phi (n, TILE, 16) against one
     sub-chunk box each, sb (n, 6) [min xyz, max xyz], on [tmin, cur_t]. A
@@ -274,11 +382,12 @@ def run_worklist_plain(tids, cids, phi, feats, sub_bounds, tmin, key0, pair0,
 
 
 def worklist_plain_live(tids, cids, phi, feats, sub_bounds, tmin, key0,
-                        pair0, *, TILE: int, C: int, SUB: int):
+                        pair0, *, TILE: int, C: int, SUB: int,
+                        hits=_featurized_hits):
     """``run_worklist_plain``, also returning the number of (block,
     sub-chunk) pairs whose lanes the sweep tests: every one for SUB = 1,
-    only those that pass the tile's slab test for SUB > 1. Returns (key,
-    pair, live)."""
+    only those that pass the tile's slab test for SUB > 1. ``hits`` is
+    the featurized test. Returns (key, pair, live)."""
     R = phi.shape[0]
     n_tiles = R // TILE
     CS = C // SUB
@@ -296,8 +405,8 @@ def worklist_plain_live(tids, cids, phi, feats, sub_bounds, tmin, key0,
         ck, cp = key[t], pair[t]
         for s in range(SUB):
             cur_t = _t_from_keys(ck, bits)
-            ok, tt = _featurized_hits(ph, fe[:, :, s * 4 * CS:(s + 1) * 4 * CS],
-                                      tm, cur_t)
+            ok, tt = hits(ph, fe[:, :, s * 4 * CS:(s + 1) * 4 * CS], tm,
+                          cur_t)
             kb = torch.where(tt > 0.0, tt, 0.0).view(torch.int32)
             kmin = torch.where(ok, (kb & ~mask) | lanes, INT32_MAX).amin(2)
             better = kmin < ck
@@ -313,6 +422,22 @@ def worklist_plain_live(tids, cids, phi, feats, sub_bounds, tmin, key0,
             cp = torch.where(better, cand, cp)
         key[t], pair[t] = ck, cp
     return key.reshape(-1), pair.reshape(-1), int(live_pairs)
+
+
+def run_worklist_model(tids, cids, phi, feats, sub_bounds, tmin, key0,
+                       pair0, *, TILE: int, C: int, SUB: int, tiles=None):
+    """``run_worklist_plain`` through ``kernel_order_hits``: K3's bits, on
+    the tiles ``tiles`` (ascending int64 ids, all of them when None) with
+    all their blocks. Returns (key, pair) of those tiles' rays
+    (``tile_rows(tiles, TILE)``)."""
+    if tiles is not None:
+        tids, cids, rows = _tile_subset(tids, cids, tiles, TILE)
+        phi, tmin, key0, pair0 = phi[rows], tmin[rows], key0[rows], \
+            pair0[rows]
+    key, pair, _ = worklist_plain_live(tids, cids, phi, feats, sub_bounds,
+                                       tmin, key0, pair0, TILE=TILE, C=C,
+                                       SUB=SUB, hits=kernel_order_hits)
+    return key, pair
 
 
 def _check_worklist_args(name, tids, cids, phi, feats, rows, TILE, C, SUB):
@@ -344,12 +469,12 @@ def _check_worklist_args(name, tids, cids, phi, feats, rows, TILE, C, SUB):
 def run_worklist(tids, cids, phi, feats, sub_bounds, tmin, key0, pair0=None,
                  *, TILE: int, C: int, SUB: int):
     """Kernel K3 (``csrc/worklist_sweep.cu``): ``run_worklist_plain`` on
-    the card, one CTA per ray tile walking its blocks in order, with the
-    dot evaluated as a 10-deep FMA chain instead of a matrix product.
-    ``pair0`` defaults to -1. CPU tensors take ``run_worklist_plain``;
-    CUDA tensors launch the kernel or raise. Ids are not range-checked on
-    the card: ``tids`` must be sorted and below R/TILE, ``cids`` below
-    K."""
+    the card, one CTA per ray tile walking its blocks in order, the test
+    evaluated as ``kernel_order_hits`` does (bit for bit) instead of as a
+    matrix product. ``pair0`` defaults to -1. CPU tensors take
+    ``run_worklist_plain``; CUDA tensors launch the kernel or raise. Ids
+    are not range-checked on the card: ``tids`` must be sorted and below
+    R/TILE, ``cids`` below K."""
     if pair0 is None:
         pair0 = torch.full_like(key0, -1)
     if phi.device.type == "cpu":
@@ -387,13 +512,14 @@ run_worklist.launches = 0
 
 
 def run_occlusion_plain(tids, cids, phi, feats, tmin, tmax, *, TILE: int,
-                        C: int, SUB: int = 1):
+                        C: int, SUB: int = 1, hits=_featurized_hits):
     """The tile-worklist occlusion sweep in plain PyTorch (full float32).
     Per ray, the first accepted triangle wins: the smallest lane (in
     triangle order, s*CS + j) of the first block in worklist order whose
     test with t in [tmin, tmax] passes. Returns (R,) int32 occluder pairs
     cid*C + lane, -1 for a free ray. Tiles whose rays are all occluded
-    skip the rest of their blocks, which changes no result."""
+    skip the rest of their blocks, which changes no result. ``hits`` is
+    the featurized test."""
     R = phi.shape[0]
     n_tiles = R // TILE
     CS = C // SUB
@@ -413,19 +539,34 @@ def run_occlusion_plain(tids, cids, phi, feats, tmin, tmax, *, TILE: int,
         # per quantity with lanes in triangle order.
         fe = feats[cid].reshape(-1, FEAT, SUB, 4, CS).transpose(2, 3) \
             .reshape(-1, FEAT, 4 * C)
-        ok, _ = _featurized_hits(phi_t[t], fe, tmin_t[t], tmax_t[t])
+        ok, _ = hits(phi_t[t], fe, tmin_t[t], tmax_t[t])
         lane = torch.where(ok, lanes, C).amin(2)
         pair[t] = torch.where((cur < 0) & (lane < C),
                               cid.to(torch.int32)[:, None] * C + lane, cur)
     return pair.reshape(-1)
 
 
+def run_occlusion_model(tids, cids, phi, feats, tmin, tmax, *, TILE: int,
+                        C: int, SUB: int = 1, tiles=None):
+    """``run_occlusion_plain`` through ``kernel_order_hits``: K4's bits, on
+    the tiles ``tiles`` (ascending int64 ids, all of them when None) with
+    all their blocks. Returns the occluders of those tiles' rays
+    (``tile_rows(tiles, TILE)``)."""
+    if tiles is not None:
+        tids, cids, rows = _tile_subset(tids, cids, tiles, TILE)
+        phi, tmin, tmax = phi[rows], tmin[rows], tmax[rows]
+    return run_occlusion_plain(tids, cids, phi, feats, tmin, tmax,
+                               TILE=TILE, C=C, SUB=SUB,
+                               hits=kernel_order_hits)
+
+
 def run_occlusion(tids, cids, phi, feats, tmin, tmax, *, TILE: int, C: int,
                   SUB: int = 1):
     """Kernel K4 (``csrc/occlusion_sweep.cu``): ``run_occlusion_plain`` on
-    the card, one CTA per ray tile. CPU tensors take
-    ``run_occlusion_plain``; CUDA tensors launch the kernel or raise. Ids
-    are not range-checked on the card (see ``run_worklist``)."""
+    the card, one CTA per ray tile, the test evaluated as
+    ``kernel_order_hits`` does. CPU tensors take ``run_occlusion_plain``;
+    CUDA tensors launch the kernel or raise. Ids are not range-checked on
+    the card (see ``run_worklist``)."""
     if phi.device.type == "cpu":
         return run_occlusion_plain(tids, cids, phi, feats, tmin, tmax,
                                    TILE=TILE, C=C, SUB=SUB)

@@ -1,9 +1,8 @@
 """What the card probes share: timing with CUDA events, the launch of one
-probe kernel through the kernel library, the plain versions' fused
-multiply-add, the acceptance slack and the bit-for-bit check."""
+probe kernel through the kernel library, the acceptance slack and the
+bit-for-bit check. The plain versions' fused multiply-add is
+``core.triangle.fma``, rounded once as the card's ``fmaf``."""
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -39,25 +38,6 @@ def launch(name: str, device, *args) -> None:
         err = getattr(lib, f"raycore_{name}")(
             *args, torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, name)
-
-
-def fma_rn(a, b, c):
-    """``a*b + c`` rounded once to float32, as the card's ``fmaf``. The
-    product of two float32 values is exact in float64; the sum is taken in
-    float64 rounded to odd (rounded to nearest, then moved one ulp toward
-    the exact sum where that leaves the last bit even), and a float64
-    rounded to odd rounds to float32 as the exact sum would. Rounding the
-    float64 sum to nearest instead can round twice: the exact sum just past
-    a float32 halfway point lands on it, then goes to even."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    # TwoSum: s + e == p + c exactly.
-    pp = s - c
-    e = (p - pp) + (c - (s - pp))
-    nudge = (e != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.copysign(torch.full_like(s, math.inf), e)
-    return torch.where(nudge, torch.nextafter(s, toward), s).float()
 
 
 def check_equal(got, want, what: str) -> None:

@@ -36,9 +36,10 @@ import numpy as np
 import torch
 
 from ..core.device import default_device
+from ..core.triangle import fma
 from ..kernels import _build
 from ..ops.dense import FEAT, INT32_MAX
-from ._common import EPS, ONE_EPS, best_ms, check_equal, fma_rn, launch
+from ._common import EPS, ONE_EPS, best_ms, check_equal, launch
 
 VARIANTS = ("matmul_only", "vpu_only", "full", "vpu_full",
             "no_divide_signtrick", "approx_recip", "recip_only")
@@ -83,7 +84,7 @@ def _keys(variant, phi, F, tmin, key0):
         q = torch.zeros((phi.shape[0], 4 * C), dtype=torch.float32,
                         device=phi.device)
         for f in range(FEAT):
-            q = fma_rn(phi[:, f:f + 1], F[f:f + 1], q)
+            q = fma(phi[:, f:f + 1], F[f:f + 1], q)
         det, udet, vdet, tdet = (q[:, k * C:(k + 1) * C] for k in range(4))
     if variant == "matmul_only":
         return tdet.contiguous().view(torch.int32).min(1, keepdim=True).values
@@ -130,8 +131,9 @@ def run_epilogue_plain(phi, feats, tmin, key0, *, TILE, n_blocks, variant,
     """The probe's (n_tiles * TILE, 1) int32 keys in plain PyTorch: every
     tile some block visits gets the tool's keys for its rows (blocks on the
     same tile compute the same keys), every other row 0. The dot is the
-    kernel's fused multiply-add chain (``_common.fma_rn``), the VPU sums the
-    tool's products and additions in its order, the reciprocal exact."""
+    kernel's fused multiply-add chain (``core.triangle.fma``), the VPU
+    sums the tool's products and additions in its order, the reciprocal
+    exact."""
     _check_args(variant, phi, TILE, n_blocks)
     n_tiles = phi.shape[0] // TILE
     out = torch.zeros((phi.shape[0], 1), dtype=torch.int32, device=phi.device)

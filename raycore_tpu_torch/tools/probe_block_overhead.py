@@ -24,10 +24,11 @@ import sys
 import torch
 
 from ..core.device import default_device
+from ..core.triangle import fma
 from ..kernels import _build
 from ..ops.dense import FEAT, INT32_MAX
 from ..ops.regroup import COL_TMAX, COL_TMIN
-from ._common import EPS, ONE_EPS, best_ms, fma_rn, launch
+from ._common import EPS, ONE_EPS, best_ms, launch
 
 VARIANTS = ("full", "contig_tbl", "mm_only", "no_matmul")
 C = 128
@@ -59,7 +60,7 @@ def _block_plain(variant, rows, F):
         q = torch.zeros(rows.shape[:2] + (F.shape[2],), dtype=torch.float32,
                         device=rows.device)
         for f in range(COL_TMIN):
-            q = fma_rn(rows[:, :, f:f + 1], F[:, f:f + 1, :], q)
+            q = fma(rows[:, :, f:f + 1], F[:, f:f + 1, :], q)
     if variant == "mm_only":
         return q[:, :, 0].contiguous().view(torch.int32), \
             torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device)
@@ -79,7 +80,7 @@ def _block_plain(variant, rows, F):
 def run_block_plain(variant, G, SPB, subs, cids, tbl, feats, tbl_contig=None):
     """The probe block's (key, lane), each (n_blocks * G * SPB, 1) int32, in
     plain PyTorch: the 13-deep dot as the kernel's fused multiply-add chain
-    (``_common.fma_rn``), then the tool's epilogue with IEEE division."""
+    (``core.triangle.fma``), then the tool's epilogue with IEEE division."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
     n_blocks = cids.shape[0]

@@ -26,8 +26,9 @@ import numpy as np
 import torch
 
 from ..core.device import default_device
+from ..core.triangle import fma
 from ..kernels import _build
-from ._common import best_ms, fma_rn, launch
+from ._common import best_ms, launch
 
 VARIANTS = ("fma", "tf32", "3xtf32", "bf16")
 TIER_OF_PREC = {"highest": "fma", "default": "tf32", "high": "3xtf32"}
@@ -86,7 +87,7 @@ def _fma_row_sums(a, b):
                          f"{COL_CHUNK}")
     dots = torch.zeros((M, N), dtype=torch.float32, device=a.device)
     for k in range(a.shape[1]):
-        dots = fma_rn(a[:, k:k + 1], b[k:k + 1], dots)
+        dots = fma(a[:, k:k + 1], b[k:k + 1], dots)
     cols = dots.view(M, N // COL_CHUNK, 2, COL_CHUNK // 2).transpose(1, 2) \
         .reshape(M, 2, -1)
     halves = torch.zeros((M, 2), dtype=torch.float32, device=a.device)
@@ -117,7 +118,7 @@ def run_matmul_plain(a, b, steps: int, prec: str):
     the same product):
 
       fma     bit for bit: the kernel's fused multiply-add chains
-              (``_common.fma_rn``) and its order of additions;
+              (``core.triangle.fma``) and its order of additions;
       tf32    each input rounded to TF32 (``to_tf32``), the products summed
               in float64 and rounded once;
       3xtf32  each input split into its TF32 part hi and lo = TF32(x - hi),

@@ -4,8 +4,11 @@ JAX package, on the CPU.
 Both packages get the same NumPy inputs. Mesh generators, safe_invdir,
 fast_intersect_triangle (against the compiled JAX function, whose dots
 and cross products are fused multiply-adds), Morton codes and padding
-must agree bit for bit.
+must agree bit for bit. The port's fused multiply-add rounds once, as
+exact rational arithmetic says.
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,6 +97,66 @@ def test_fast_intersect_triangle_matches_compiled_jax(seed):
     assert np_(got[0]).sum() > 100
     for r, g in zip(ref[1:], got[1:]):
         assert np.array_equal(bits(r), bits(g))
+
+
+def _round_f32(exact):
+    """The float32 nearest to a Fraction, ties to even."""
+    lo = np.float32(float(exact))
+    near = [np.nextafter(lo, np.float32(-np.inf)), lo,
+            np.nextafter(lo, np.float32(np.inf))]
+    err = [abs(Fraction(float(f)) - exact) for f in near]
+    best = [f for f, e in zip(near, err) if e == min(err)]
+    if len(best) == 2:
+        best = [f for f in best if not f.view(np.int32) & 1]
+    return best[0]
+
+
+def test_fma_rounds_once():
+    """``fma`` against exact rational arithmetic. The smallest input that
+    a float64 sum rounded to nearest gets wrong: x * y = 2^-24 + 2^-60,
+    so 1 + x * y lies just past the halfway point 1 + 2^-24 and rounds up
+    to 1 + 2^-23 (rounding to float64 first lands on the halfway point,
+    which goes to even, 1). Then 3,000 sums on a float32 halfway point or
+    near it (most within 2^-27 of half an ulp, on either side), at random
+    exponents and signs, where rounding twice fails more than 100 times,
+    and 1,000 random triples."""
+    x = torch.tensor([1 + 2.0 ** -12])
+    y = torch.tensor([(1 - 2.0 ** -12 + 2.0 ** -24) * 2.0 ** -24])
+    one = torch.ones(1)
+    assert t_tri.fma(x, y, one).item() == 1 + 2.0 ** -23
+    assert (x.double() * y.double() + 1).float().item() == 1.0
+    rng = np.random.default_rng(7)
+    n = 3000
+    # c has exponent e; a * b = ulp(c) / 2 * (1 + (y - x^2) 2^-24
+    # + x y 2^-36) with 0 <= x <= 8 and y = x^2 (+-1 on a fifth): a sum
+    # a few 2^-36 half ulps, or one 2^-24, from a float32 halfway point;
+    # x = 0, y = 0 is the tie itself.
+    e = rng.integers(-40, 40, n)
+    c = (rng.integers(2 ** 23, 2 ** 24, n) * 2.0 ** (e - 23)
+         * rng.choice([-1, 1], n)).astype(np.float32)
+    xi = rng.integers(0, 9, n)
+    yi = xi ** 2 + rng.choice([-1, 0, 0, 0, 0, 0, 0, 0, 0, 1], n)
+    a = (1 + xi * 2.0 ** -12).astype(np.float32)
+    half_ulp = 2.0 ** (e - 24) * np.sign(c) * rng.choice([-1, 1], n)
+    b = ((1 - xi * 2.0 ** -12 + yi * 2.0 ** -24) * half_ulp) \
+        .astype(np.float32)
+    m = 1000
+    a = np.concatenate([a, (rng.normal(size=m) * 2.0 ** rng.integers(
+        -30, 30, m)).astype(np.float32)])
+    b = np.concatenate([b, (rng.normal(size=m) * 2.0 ** rng.integers(
+        -30, 30, m)).astype(np.float32)])
+    c = np.concatenate([c, (rng.normal(size=m) * 2.0 ** rng.integers(
+        -60, 60, m)).astype(np.float32)])
+    got = t_tri.fma(*(torch.as_tensor(v) for v in (a, b, c))).numpy()
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    wrong_twice = 0
+    for xa, xb, xc, g, w in zip(a, b, c, got, twice):
+        want = _round_f32(Fraction(float(xa)) * Fraction(float(xb))
+                          + Fraction(float(xc)))
+        assert want.view(np.int32) == g.view(np.int32)
+        wrong_twice += int(want.view(np.int32) != w.view(np.int32))
+    # The set reaches the double-rounding cases.
+    assert wrong_twice > 100
 
 
 def test_cross_and_dot3_match_compiled_jax():

@@ -228,6 +228,96 @@ def test_occlusion_sweep_kernel_matches_plain(cuda, C, SUB, TILE):
     assert torch.equal(got, ref)
 
 
+def _non_finite(phi):
+    """phi with rays whose features are not finite: o x d overflowed, an
+    infinite origin, a NaN direction."""
+    phi = phi.clone()
+    phi[3::97, 3:6] = float("inf")
+    phi[5::97, 6] = float("inf")
+    phi[7::97, 0] = float("nan")
+    return phi
+
+
+@pytest.mark.parametrize("case", ["plain", "empty_tile", "non_finite"])
+@pytest.mark.parametrize("TILE", [8, 100, 512])
+@pytest.mark.parametrize("SUB", [1, 4])
+@pytest.mark.parametrize("C", [64, 256])
+def test_worklist_sweep_kernel_matches_model(cuda, C, SUB, TILE, case):
+    """K3 bit for bit against its kernel-order model on every tile, seeded
+    from t_max and then from a first pass. ``empty_tile`` drops the blocks
+    of tile 1, which must keep its seed; ``non_finite`` adds rays with
+    non-finite features, which accept nothing. At SUB = 4 the slab skip
+    decides some (block, sub-chunk) pairs."""
+    scene = _worklist_scene(C, SUB, cuda)
+    tids, cids, phi, tmin, key0, TILE = _worklist(
+        scene, _blobby_rays(1000, 4, cuda), TILE)
+    if case == "empty_tile":
+        keep = tids != 1
+        tids, cids = tids[keep].contiguous(), cids[keep].contiguous()
+    if case == "non_finite":
+        phi = _non_finite(phi)
+    kw = dict(TILE=TILE, C=C, SUB=SUB)
+    pair0 = torch.full_like(key0, -1)
+    for pass_ in range(2):
+        args = (tids, cids, phi, scene.tri_feats, scene.sub_bounds, tmin,
+                key0, pair0)
+        kk, pk = ops_dense.run_worklist(*args, **kw)
+        km, pm = ops_dense.run_worklist_model(*args, **kw)
+        assert torch.equal(kk, km) and torch.equal(pk, pm)
+        assert int((pk >= 0).sum()) > 0
+        if case == "empty_tile" and pass_ == 0:
+            rows = slice(TILE, 2 * TILE)
+            assert torch.equal(kk[rows], key0[rows])
+            assert torch.equal(pk[rows], pair0[rows])
+        if SUB > 1 and pass_ == 0:
+            _, _, live = ops_dense.worklist_plain_live(*args, **kw)
+            assert 0 < live < SUB * tids.numel()
+        key0, pair0 = kk, pk
+        half = tids.shape[0] // 2
+        tids, cids = tids[half:].clone(), cids[half:].clone()
+
+
+@pytest.mark.parametrize("case", ["plain", "occluded_tile", "non_finite"])
+@pytest.mark.parametrize("TILE", [8, 100, 512])
+@pytest.mark.parametrize("SUB", [1, 4])
+@pytest.mark.parametrize("C", [64, 256])
+def test_occlusion_sweep_kernel_matches_model(cuda, C, SUB, TILE, case):
+    """K4 bit for bit against its kernel-order model. ``occluded_tile``:
+    downward rays over a heightfield, so that whole tiles are occluded
+    before their last block and the walk ends early; ``non_finite`` adds
+    rays with non-finite features, which stay free."""
+    if case == "occluded_tile":
+        scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                               cluster_size=C, sub_chunks=SUB)
+        xs = torch.linspace(-0.9, 0.9, 48, device=cuda)
+        o = torch.stack(torch.meshgrid(xs, xs, indexing="ij") + (
+            torch.full((48, 48), 3.0, device=cuda),), -1).reshape(-1, 3)
+        rays = rt.Ray.create(o, torch.tensor([0.0, 0.0, -1.0], device=cuda)
+                             .expand_as(o).contiguous())
+    else:
+        scene = _worklist_scene(C, SUB, cuda)
+        rays = _blobby_rays(1000, 5, cuda)
+    tids, cids, phi, tmin, _, TILE = _worklist(scene, rays, TILE)
+    tmax = torch.full_like(tmin, float("inf"))
+    if case != "occluded_tile":
+        tmax[::3] = 2.6          # short rays: some free, some occluded
+    if case == "non_finite":
+        phi = _non_finite(phi)
+    kw = dict(TILE=TILE, C=C, SUB=SUB)
+    args = (tids, cids, phi, scene.tri_feats, tmin, tmax)
+    got = ops_dense.run_occlusion(*args, **kw)
+    assert torch.equal(got, ops_dense.run_occlusion_model(*args, **kw))
+    assert int((got >= 0).sum()) > 0
+    if case == "occluded_tile":
+        n_tiles = got.numel() // TILE
+        occluded = (got.reshape(n_tiles, TILE) >= 0).all(dim=1)
+        blocks = torch.bincount(tids.long(), minlength=n_tiles)
+        assert bool((occluded & (blocks > 1)).any())
+    if case == "non_finite":
+        bad = ~torch.isfinite(phi[:, :10]).all(dim=1)
+        assert bool(bad.any()) and not bool((got[bad] >= 0).any())
+
+
 def test_worklist_queries_on_card_match_cpu_and_oracle(cuda):
     """closest_hit and any_hit below REGROUP_MIN_RAYS go through K1, K3 and
     K4, agree with the same query on the CPU and with the oracle."""

@@ -28,7 +28,7 @@ from raycore_tpu_torch.tools import epilogue_experiments as t_epi
 from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
-from raycore_tpu_torch.tools._common import fma_rn
+from raycore_tpu_torch.core.triangle import fma as fma_rn
 from torch_parity import CPU
 
 REPO = Path(__file__).resolve().parent.parent
@@ -163,7 +163,7 @@ def test_matmul_fma_tier_order():
 
 
 def test_fma_rn_rounds_once():
-    """``fma_rn`` against exact rational arithmetic on 2,000 random
+    """``core.triangle.fma`` against exact rational arithmetic on 2,000 random
     float32 triples spread over 2^+-60, and on a sum just past a float32
     halfway point, where rounding the float64 sum to nearest first lands
     on the halfway point and then goes to even."""
