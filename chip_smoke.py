@@ -16,7 +16,8 @@ count set to 0 just before it and read just after:
   4. kernel K1 (phase A) against its plain version on the headline query's
      stats and bounds: bitwise equal;
   5. kernel K2 (regroup sweep) against its plain version on the headline
-     query's blocks, within the stated tolerance; K5 (packed sweep) at one
+     query's blocks, within the stated tolerance, and bit for bit against
+     its kernel-order model on sampled blocks; K5 (packed sweep) at one
      sub-chunk per cluster and one block per CTA on the same blocks,
      bitwise equal to K2 and timed beside it;
   6. the headline query, closest_hit on 1024^2 Morton-ordered downward rays
@@ -70,11 +71,18 @@ rays. Every kernel that a path does not name must not launch on it.
 Phases 8-11 also hold K3 and K4 bit for bit against their kernel-order
 model (ops/dense.py:kernel_order_hits) on SAMPLE_TILES sampled tiles with
 all their blocks, and phase 11 counts K4's tests per warp beside the
-tests its rays need.
+tests its rays need. Phases 5 (the headline's blocks, which phase 6's
+query sweeps), 11 (the 1M shadow rays' blocks) and 12-13 hold K2 and K5
+bit for bit against theirs (ops/regroup.py:run_regrouped_model,
+run_packed_model) on SAMPLE_BLOCKS sampled blocks plus the block with the
+most dummy slots; their bounds count only live rows (not the dummy
+subgroup that pads a cluster's last block). Phase 13 also times K5 with
+its slices staged whole against the launched 64-lane chunks.
 
 The line before the last is a JSON object with each kernel's launches on
-its path, error against its plain version, times and bound; the last line
-is {"ok": true, "device": {...}}.
+its path, error against its plain version, times and bound; the line
+before it the script's wall time; the last line is {"ok": true,
+"device": {...}}.
 """
 import json
 import math
@@ -160,6 +168,9 @@ PROBE_BLOCKS = 8192
 # Tiles of each worklist cell (phases 8-11) that K3 and K4 are held to
 # their kernel-order model on, with all their blocks.
 SAMPLE_TILES = 16
+# Blocks of each regrouped or packed sweep (phases 5, 11-13) that K2 and
+# K5 are held to their kernel-order model on.
+SAMPLE_BLOCKS = 64
 
 
 def say(phase, msg):
@@ -354,6 +365,7 @@ def morton_grid_rays(side, device):
 
 def main():
     # 1. Environment.
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on the card")
@@ -427,7 +439,7 @@ def main():
 
     # 5. K2 against its plain version on the headline blocks.
     k2 = regroup_sweep_check("K2 headline", ops_regroup, scene,
-                             (po, pd, ptmin, ptmax), TILE, G, SPB)
+                             (po, pd, ptmin, ptmax), TILE, G, SPB, 5)
     n_blocks, k2_err = k2["blocks"], k2["err"]
     say(5, k2["desc"])
     k2_ms = cuda_ms(k2["run"], 10)
@@ -692,7 +704,7 @@ def main():
     del scene4, res_p
 
     # 13. The packed engine at cluster granularity (C_eff = C = 256): its
-    # 40 KB sub-cluster slices, staged in four lane chunks.
+    # 19 KB sub-cluster slices, staged in four lane chunks.
     zero_counts()
     res_c = ops_regroup.closest_hit_packed(scene, rays)
     torch.cuda.synchronize()
@@ -761,6 +773,8 @@ def main():
           "max_abs_err": p["err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
           "bound_ms": p["bound"][0], "bound_by": p["bound"][1],
           "library_ms": p["library_ms"]} for p in probes]
+    say("end", f"chip_smoke.py wall time "
+               f"{time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -788,14 +802,17 @@ def phase_a_check(what, ops_dense, scene, rows, TILE):
     return stats, bounds, ek, err
 
 
-def sweep_check(what, stage1, kernel, plain, scene, rows, TILE, G, SPB,
-                C_eff):
+def sweep_check(what, stage1, kernel, plain, model, scene, rows, TILE, G,
+                SPB, C_eff, phase):
     """A closest-hit sweep kernel (K2 or K5) against its plain version on
     the blocks ``stage1`` builds from ``rows`` (padded to whole tiles) in
-    blocks of SPB subgroups; the bound of that sweep: each row tests C_eff
-    lanes, and the table read once is the 19 C_eff nonzero coefficients of
-    each distinct (sub-)cluster's slice. ``kernel`` and ``plain`` take
-    (block_subs, block_cid, tbl, feats). Returns a dict: the kernel and its
+    blocks of SPB subgroups, and bit for bit against its kernel-order
+    model on sampled blocks (``block_model_check``); the bound of that
+    sweep: each live row (a block with cid >= 0, a slot that is not the
+    dummy subgroup) tests C_eff lanes, and the table read once is the 19
+    C_eff nonzero coefficients of each distinct (sub-)cluster's slice.
+    ``kernel``, ``plain`` and ``model`` take (block_subs, block_cid, tbl,
+    feats), ``model`` also ``blocks=``. Returns a dict: the kernel and its
     plain version on these blocks (``run``, ``run_plain``), the kernel's
     output and arguments, blocks, error, bound and a description."""
     block_cid, block_subs, tbl, counts = stage1(scene, *rows, TILE, G, SPB)
@@ -805,28 +822,68 @@ def sweep_check(what, stage1, kernel, plain, scene, rows, TILE, G, SPB,
     torch.cuda.synchronize()
     n, plain_hits, flips, pair_diff, err, rel = compare_sweeps(
         what, kk, pk, kp, pp, 0)
+    n_sub = tbl.shape[0] - 1
+    dummy = block_subs == n_sub
+    live_rows = int(((block_cid >= 0)[:, None] & ~dummy).sum()) * G
     b = bound(nbytes(block_subs, block_cid, tbl, kk, pk)
-              + table_bytes(block_cid, C_eff), n * C_eff * TEST_FLOPS)
+              + table_bytes(block_cid, C_eff), live_rows * C_eff * TEST_FLOPS)
+    model_desc = block_model_check(what, (kk, pk), lambda blocks: model(
+        *args, blocks=blocks), dummy, G * SPB, phase)
     pairs = ", ".join(f"{c} {w} pairs" for c, w in zip(
         counts[:-1], ("coarse", "subgroup", "sub-cluster")))
-    desc = (f"{what}: {block_cid.shape[0]} blocks ({pairs}), {n} rows, "
-            f"{plain_hits} plain hits; hit-mask flips {flips}, pair "
+    desc = (f"{what}: {block_cid.shape[0]} blocks ({pairs}; dummy subgroup "
+            f"in {int(dummy.sum())} of {dummy.numel()} slots, "
+            f"{float(dummy.float().mean()):.4f}), {n} rows, {live_rows} "
+            f"live, {plain_hits} plain hits; hit-mask flips {flips}, pair "
             f"differences {pair_diff} (0 where the keys are equal), max rel "
-            f"t {rel:.3g}")
+            f"t {rel:.3g}; {model_desc}")
     return dict(run=lambda: kernel(*args), run_plain=lambda: plain(*args),
                 out=(kk, pk), args=args, blocks=block_cid.shape[0], err=err,
                 bound=b, desc=desc)
 
 
-def regroup_sweep_check(what, ops_regroup, scene, rows, TILE, G, SPB):
-    """K2 against its plain version on the regrouped stage 1's blocks."""
+def block_model_check(what, got, model, dummy, ROWS, phase):
+    """A closest-hit sweep kernel's (key, pair) ``got`` bit for bit
+    against its kernel-order model ``model(blocks)`` on SAMPLE_BLOCKS
+    blocks drawn with a seed plus the block with the most dummy slots
+    (``dummy``: (n_blocks, SPB) bool). Returns a description."""
+    n_blocks = dummy.shape[0]
+    rng = np.random.default_rng(SEED + 200 + phase)
+    pick = set(rng.choice(n_blocks, min(SAMPLE_BLOCKS, n_blocks),
+                          replace=False).tolist())
+    pick.add(int(dummy.sum(dim=1).argmax()))
+    blocks = torch.tensor(sorted(pick), device=dummy.device)
+    t = time.perf_counter()
+    want = model(blocks)
+    rows = blocks[:, None] * ROWS + torch.arange(ROWS, device=dummy.device)
+    rows = rows.reshape(-1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    for g, w, name in zip(got, want, ("key", "pair")):
+        n = int((g[rows] != w).sum())
+        if n:
+            raise AssertionError(f"{what}: {n} of {w.numel()} {name}s on "
+                                 f"{blocks.numel()} sampled blocks differ "
+                                 f"from the kernel-order model")
+    return (f"bit for bit equal to the kernel-order model on "
+            f"{blocks.numel()} sampled blocks ({int(dummy[blocks].sum())} "
+            f"dummy slots, {int((want[1] >= 0).sum())} hits; the model took "
+            f"{seconds:.2f} s)")
+
+
+def regroup_sweep_check(what, ops_regroup, scene, rows, TILE, G, SPB,
+                        phase):
+    """K2 against its plain version and its kernel-order model on the
+    regrouped stage 1's blocks."""
     C = scene.cluster_size
     kw = dict(G=G, SPB=SPB, C=C)
     return sweep_check(
         f"{what} regroup_sweep", ops_regroup._stage1_cm_core,
         lambda *a: ops_regroup.run_regrouped(*a, **kw),
         lambda *a: ops_regroup.run_regrouped_plain(*a, **kw),
-        scene, rows, TILE, G, SPB, C)
+        lambda *a, blocks: ops_regroup.run_regrouped_model(
+            *a, **kw, blocks=blocks),
+        scene, rows, TILE, G, SPB, C, phase)
 
 
 def regroup_occlusion_check(ops_dense, ops_regroup, rt, scene, rays):
@@ -838,7 +895,7 @@ def regroup_occlusion_check(ops_dense, ops_regroup, rt, scene, rays):
     rows = (po, pd, ptmin, ptmax)
     phase_a_check("K1 regrouped any_hit", ops_dense, scene, rows, TILE)
     k2 = regroup_sweep_check("K2 regrouped any_hit", ops_regroup, scene,
-                             rows, TILE, G, 16)
+                             rows, TILE, G, 16, 11)
     return f"K1 bitwise equal to plain; {k2['desc']}"
 
 
@@ -1037,10 +1094,28 @@ def packed_phase(phase, rt, ops_dense, ops_regroup, scene, rays, query, res,
         f"PACKS {PACKS})", ops_regroup._stage1_packed_core,
         lambda *a: ops_regroup.run_packed(*a, PACKS=PACKS, **kw),
         lambda *a: ops_regroup.run_packed_plain(*a, **kw),
-        scene, rows, TILE, G, SPB_sub, C_eff)
+        lambda *a, blocks: ops_regroup.run_packed_model(*a, **kw,
+                                                        blocks=blocks),
+        scene, rows, TILE, G, SPB_sub, C_eff, phase)
     ms = cuda_ms(k5["run"], 10)
     plain_ms = cuda_ms(k5["run_plain"], 3)
     b = k5["bound"]
+    if C_eff > ops_regroup.LANE_CHUNK:
+        # The slice staged in LANE_CHUNK-lane chunks (launched) against
+        # staged whole, in turns: chunked, whole, whole, chunked.
+        whole = lambda: ops_regroup.run_packed(*k5["args"], PACKS=PACKS,
+                                               lane_chunk=C_eff, **kw)
+        for got, want, name in zip(whole(), k5["out"], ("key", "pair")):
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 with whole slices: "
+                                     f"{int((got != want).sum())} {name}s "
+                                     f"differ from the chunked launch")
+        t = [cuda_ms(f, 10) for f in (k5["run"], whole, whole, k5["run"])]
+        say(phase, f"K5 slice staging at C_eff {C_eff}, PACKS {PACKS}: "
+                   f"{ops_regroup.LANE_CHUNK}-lane chunks {t[0]:.3f} / "
+                   f"{t[3]:.3f} ms, whole slices ({76 * C_eff * PACKS} B of "
+                   f"shared memory a CTA) {t[1]:.3f} / {t[2]:.3f} ms; bitwise "
+                   f"equal")
     q_ms = cuda_ms(query, 5)
     hit_frac = float(res.hit.float().mean())
     off_diag = int((~res.hit & ~diag).sum())
@@ -1445,7 +1520,7 @@ def block_phase(phase, p4, dev, read_counts, zero_counts, k2_us):
                f"{us:.4f} us/block ({us * 1e6 / (G * SPB * p4.C):.3f} ps "
                f"per (row, lane)); K2 on the headline's blocks {k2_us:.4f} "
                f"us/block ({k2_us * 1e6 / (32 * 16 * 256):.3f} ps per (row, "
-               f"lane), 256 lanes, 10-deep); plain {plain_ms:.3f} ms on "
+               f"lane), 256 lanes, 19 terms); plain {plain_ms:.3f} ms on "
                f"{n_check} blocks; bound {b[0]:.4f} ms ({b[1]}); launches "
                f"{launches}")
     return probe_result("block_probe", "tools/probe_block_overhead.py:70",

@@ -22,6 +22,7 @@ from .core.ray import Ray
 from .core.triangle import Triangle, fast_intersect_triangle, safe_invdir
 from .accel.brute import HitResult, closest_hit_brute
 from .accel.dense import DenseScene, build_dense
+from .accel.dispatch import has_warm_capacity, prewarm
 from .accel.dispatch import scene_any_hit as any_hit
 from .accel.dispatch import scene_closest_hit as closest_hit
 from .ops.brute import closest_hit_brute_pallas
@@ -35,7 +36,8 @@ from .scene.mesh import (blobby_mesh, box_mesh, build_triangles,
                          uv_sphere)
 
 __all__ = ["Ray", "Triangle", "HitResult", "DenseScene", "build_dense",
-           "closest_hit", "any_hit", "closest_hit_regrouped",
+           "closest_hit", "any_hit", "prewarm", "has_warm_capacity",
+           "closest_hit_regrouped",
            "any_hit_regrouped", "closest_hit_packed",
            "closest_hit_dense_pallas", "closest_hit_dense_pallas_auto",
            "closest_hit_dense_pallas_topk", "any_hit_dense_pallas_auto",

@@ -6,15 +6,16 @@ engines are warm. ``closest_hit``: a batch of at least
 ``REGROUP_MIN_RAYS`` rays goes to the regrouped engine (tile 2048) on a
 scene with sub_chunks == 1 and to the packed sub-cluster engine
 (``closest_hit_packed``, tile 2048) on a scene with sub_chunks >= 2;
-every other batch goes to the tile worklist (tile 512). ``any_hit``: a
-batch of at least that many rays on a sub_chunks == 1 scene goes to the
-regrouped occlusion, every other batch to the worklist occlusion. The
-warmth and opt-in gates of the JAX rule guard against remote compiles
-and are not ported. The results contract does not depend on the engine.
+every other batch goes to the tile worklist (tile 512 at the default
+``tile_size``). ``any_hit``: a batch of at least that many rays on a
+sub_chunks == 1 scene goes to the regrouped occlusion, every other batch
+to the worklist occlusion. The warmth and opt-in gates of the JAX rule
+guard against remote compiles and are not ported: ``has_warm_capacity``
+and ``prewarm`` keep the JAX package's names for its callers. The
+results contract does not depend on the engine.
 """
 from __future__ import annotations
 
-from .brute import HitResult
 from .dense import DenseScene
 
 # Queries below this size do not amortize the regrouped engines' stage 1;
@@ -35,31 +36,80 @@ def _big_batch(scene, rays) -> bool:
     return n_rays >= REGROUP_MIN_RAYS
 
 
-def scene_closest_hit(scene, rays, *, payload: str = "full") -> HitResult:
+def _worklist_tile(tile_size: int) -> int:
+    """The tile worklist's ray tile for a caller's ``tile_size``, as the
+    JAX package picks it: 512 at the default."""
+    return min(512, max(tile_size, 8))
+
+
+def scene_closest_hit(scene, rays, *, tile_size: int = 16384,
+                      payload: str = "full", deferred: bool = False,
+                      **trav_kw):
     """Closest hit over a scene, the package-level ``closest_hit``.
 
     payload="slim" declares that the caller never reads triangle or
     barycentric: the regrouped engine then skips the payload gather
     (hit/t/prim_idx/instance_idx/metadata stay exact). The packed engine
     and the tile worklist have no slim mode and return the full
-    payload."""
-    if _big_batch(scene, rays):
-        if scene.sub_chunks == 1:
-            from ..ops.regroup import closest_hit_regrouped
-            return closest_hit_regrouped(scene, rays, tile=2048, passes=1,
-                                         payload=payload)
+    payload. ``tile_size`` sets the tile worklist's ray tile
+    (``min(512, max(tile_size, 8))``). ``deferred=True`` returns
+    ``(result, None)``: every query here syncs, so the result is valid
+    and there is nothing to finalize. ``trav_kw`` (the BVH traversal's
+    options) raises ``TypeError`` on a ``DenseScene``, as in the JAX
+    package."""
+    big = _big_batch(scene, rays)
+    if trav_kw:
+        raise TypeError(f"dense-engine queries do not accept {trav_kw}")
+    if big and scene.sub_chunks == 1:
+        from ..ops.regroup import closest_hit_regrouped
+        res = closest_hit_regrouped(scene, rays, tile=2048, passes=1,
+                                    payload=payload)
+    elif big:
         from ..ops.regroup import closest_hit_packed
-        return closest_hit_packed(scene, rays, tile=2048)
-    from ..ops.dense import closest_hit_dense_pallas_auto
-    return closest_hit_dense_pallas_auto(scene, rays, tile=512)
+        res = closest_hit_packed(scene, rays, tile=2048)
+    else:
+        from ..ops.dense import closest_hit_dense_pallas_auto
+        res = closest_hit_dense_pallas_auto(scene, rays,
+                                            tile=_worklist_tile(tile_size))
+    return (res, None) if deferred else res
 
 
-def scene_any_hit(scene, rays) -> HitResult:
+def scene_any_hit(scene, rays, *, tile_size: int = 16384,
+                  deferred: bool = False, **trav_kw):
     """Occlusion over a scene, the package-level ``any_hit``: t_min is
     forced to 0, and only hit, prim_idx and instance_idx are
-    contractual."""
-    if _big_batch(scene, rays) and scene.sub_chunks == 1:
+    contractual. ``tile_size``, ``deferred`` and ``trav_kw`` as in
+    ``scene_closest_hit``."""
+    big = _big_batch(scene, rays)
+    if trav_kw:
+        raise TypeError(f"dense-engine queries do not accept {trav_kw}")
+    if big and scene.sub_chunks == 1:
         from ..ops.regroup import any_hit_regrouped
-        return any_hit_regrouped(scene, rays, tile=2048)
-    from ..ops.dense import any_hit_dense_pallas_auto
-    return any_hit_dense_pallas_auto(scene, rays, tile=512)
+        res = any_hit_regrouped(scene, rays, tile=2048)
+    else:
+        from ..ops.dense import any_hit_dense_pallas_auto
+        res = any_hit_dense_pallas_auto(scene, rays,
+                                        tile=_worklist_tile(tile_size))
+    return (res, None) if deferred else res
+
+
+def has_warm_capacity(scene, n_rays: int, **kw) -> bool:
+    """Whether the regrouped engine is ready for a big query on this
+    scene: ``getattr(scene, "sub_chunks", 1) == 1``, the JAX package's
+    first test. The port sizes every query from its data and keeps no
+    capacity cache, so nothing else is warmed; ``n_rays`` and the JAX
+    keywords (tile, subgroup, spb, passes, occlusion, payload) are taken
+    and do not change the answer."""
+    return getattr(scene, "sub_chunks", 1) == 1
+
+
+def prewarm(scene, n_rays: int, **kw) -> None:
+    """Build the kernel library for a scene on the card, so that the
+    first query does not pay for the build; a CPU scene needs nothing.
+    Runs no query and returns None: the port has no capacities to size
+    and no stage graphs to compile. ``n_rays`` and the JAX keywords
+    (engine, tile, subgroup, spb, spb_sub, packs, passes) are taken and
+    ignored."""
+    if scene.tri_feats.device.type == "cuda":
+        from ..kernels import _build
+        _build.library()

@@ -6,15 +6,16 @@
 // o, 1, ...] and a cluster's (16, 4C) feature table, the four quantities
 // det, u*det, v*det and t*det of a ray against a triangle are dots of phi
 // with four table columns. Feature rows 10-15 are zero by construction, so
-// K2 and K5 evaluate a dot as a 10-deep fused multiply-add chain
-// (featurized_quads). Of those 40 coefficients only 19 can be nonzero:
+// the kernels before their redesign evaluated a dot as a 10-deep fused
+// multiply-add chain. Of those 40 coefficients only 19 can be nonzero:
 // det reads rows 0-2, u*det and v*det rows 0-5, t*det rows 6-9
-// (accel/dense.py:_featurize_tris). K3 and K4 chain over those alone
+// (accel/dense.py:_featurize_tris). K2-K5 chain over those alone
 // (sparse_quads): dropping a step fmaf(phi_f, 0, acc) keeps every bit of
 // a chain over finite features except the sign of an exact zero, which no
 // acceptance test or key can see. A non-finite feature turns the 10-deep
 // chain's zero step into a NaN that rejects; the sparse kernels reject
-// such rays outright (finite_features).
+// such rays outright (finite_features). The closest-hit sweeps K2 and K5
+// share one row sweep (sweep_lanes) and differ only in what they stage.
 #pragma once
 
 #include <climits>
@@ -44,43 +45,6 @@ __device__ __forceinline__ void load_phi(const float* row, float phi[KFEAT]) {
   phi[8] = p2.x; phi[9] = p2.y;
 }
 
-// Copy rows 0..KFEAT-1 of a cluster's (FEAT, 4C) table (contiguous, KFEAT
-// * C float4s) into shared memory, all threads of the block helping.
-__device__ __forceinline__ void stage_table(float4* table4, const float* feats,
-                                            int cid, int C) {
-  const float4* src =
-      reinterpret_cast<const float4*>(feats + (size_t)cid * FEAT * 4 * C);
-  const int n4 = KFEAT * C;
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) table4[i] = __ldg(src + i);
-}
-
-// q[k][j] = dot(phi, column k * CS + 4 * c4 + j of the table block that
-// starts at float4 column base4 of each row): quantity k of lane 4 * c4 + j
-// of a block of CS lanes laid out [det | u*det | v*det | t*det]. Each
-// table row is C float4s. All threads read the same float4 at the same
-// time, a shared-memory broadcast; ten 16-byte loads feed forty FMAs.
-__device__ __forceinline__ void featurized_quads(const float4* table4, int C,
-                                                 int base4, int CS4, int c4,
-                                                 const float phi[KFEAT],
-                                                 float q[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int f = 0; f < KFEAT; ++f) {
-      const float4 w = table4[f * C + base4 + k * CS4 + c4];
-      acc.x = fmaf(phi[f], w.x, acc.x);
-      acc.y = fmaf(phi[f], w.y, acc.y);
-      acc.z = fmaf(phi[f], w.z, acc.z);
-      acc.w = fmaf(phi[f], w.w, acc.w);
-    }
-    q[k][0] = acc.x;
-    q[k][1] = acc.y;
-    q[k][2] = acc.z;
-    q[k][3] = acc.w;
-  }
-}
-
 // Acceptance of lane j of a featurized quad: barycentric slack [edge_lo,
 // edge_hi] and t in [t_lo, t_hi]. The reciprocal, the products and u + v
 // are explicitly rounded so that nothing is contracted into an FMA and the
@@ -106,26 +70,39 @@ __host__ __device__ constexpr int sparse_row(int i) {
   return i < 3 ? i : (i < 9 ? i - 3 : i - 9);
 }
 
-// Stage the 19 nonzero (feature row, quantity) float4s of every lane group
-// of a cluster's sub-chunk-major (FEAT, 4C) table into shared memory as
-// SPARSE_TERMS consecutive float4s per lane group g = s * CS / 4 + c4
-// (lanes 4g..4g+3, in triangle order): 19 C floats. Consecutive threads
-// read consecutive float4s of a table row; the odd stride of 19 float4s
-// keeps their shared-memory stores free of bank conflicts.
+// Stage lane groups [g0, g0 + n) of cluster cid's sub-chunk-major (FEAT,
+// 4C) table, sub-chunks of CS lanes, into shared memory: the 19 nonzero
+// (feature row, quantity) float4s of group g = s * CS / 4 + c4 (lanes
+// 4g..4g+3, in triangle order) go to SPARSE_TERMS consecutive float4s
+// at tbl + (g - g0) * SPARSE_TERMS. Threads tid, tid + nthreads, ... of
+// the caller share the copy. Consecutive threads read consecutive float4s
+// of a table row; the odd stride of 19 float4s keeps their shared-memory
+// stores free of bank conflicts.
+__device__ __forceinline__ void stage_sparse_groups(float4* tbl,
+                                                    const float* feats,
+                                                    int cid, int C, int CS,
+                                                    int g0, int n, int tid,
+                                                    int nthreads) {
+  const float4* src =
+      reinterpret_cast<const float4*>(feats + (size_t)cid * FEAT * 4 * C);
+  const int CS4 = CS / 4;
+  for (int idx = tid; idx < SPARSE_TERMS * n; idx += nthreads) {
+    const int i = idx / n;
+    const int j = idx - i * n;
+    const int g = g0 + j;
+    const int s = g / CS4;
+    tbl[j * SPARSE_TERMS + i] = __ldg(src + sparse_row(i) * C + s * CS +
+                                      sparse_quantity(i) * CS4 + g - s * CS4);
+  }
+}
+
+// Every lane group of cluster cid, all threads of the block helping: 19 C
+// floats.
 __device__ __forceinline__ void stage_sparse_table(float4* tbl,
                                                    const float* feats,
                                                    int cid, int C, int CS) {
-  const float4* src =
-      reinterpret_cast<const float4*>(feats + (size_t)cid * FEAT * 4 * C);
-  const int CQ = C / 4;
-  const int CS4 = CS / 4;
-  for (int idx = threadIdx.x; idx < SPARSE_TERMS * CQ; idx += blockDim.x) {
-    const int i = idx / CQ;
-    const int g = idx - i * CQ;
-    const int s = g / CS4;
-    tbl[g * SPARSE_TERMS + i] = __ldg(src + sparse_row(i) * C + s * CS +
-                                      sparse_quantity(i) * CS4 + g - s * CS4);
-  }
+  stage_sparse_groups(tbl, feats, cid, C, CS, 0, C / 4, threadIdx.x,
+                      blockDim.x);
 }
 
 // q[k][j] = quantity k of lane j of the lane group whose 19 staged float4s
@@ -222,6 +199,74 @@ constexpr float REJECT_EDGE_HI = 1.0f + 1e-5f;
 // order as the t's do.
 __device__ __forceinline__ int t_key(float t) {
   return __float_as_int(t > 0.f ? t : 0.f);
+}
+
+// Columns of the regrouped sweeps' ray table (ops/regroup.py:ray_table):
+// features 0-12, t_min in 13, t_max in 14.
+constexpr int COL_TMIN = 13;
+constexpr int COL_TMAX = 14;
+
+// One ray row of a closest-hit sweep (K2, K5) and what the sweep needs to
+// know of it before the first lane.
+//
+// A row is dead when it can accept no lane: a non-finite feature among
+// rows 0-9 (the 10-deep chain's NaN refused every lane of such a ray) or
+// !(t_min <= t_max). The second is exact: an accepted t has t >= t_min and
+// t <= t_max, so t_min <= t_max, and a NaN bound fails both compares. It
+// covers the dummy subgroup that pads a cluster's last block (zeros, t_max
+// = -inf) and the padding rays (t_max = -inf). The reject would let those
+// through to the division, since their det is +0.
+struct SweepRow {
+  float phi[KFEAT];
+  float t_min, t_max;
+  bool live;          // not dead (SweepRow{} is a dead row)
+  bool tmin_nonneg;   // quick_reject's t clause holds
+};
+
+__device__ __forceinline__ SweepRow load_sweep_row(const float* row) {
+  SweepRow r;
+  load_phi(row, r.phi);
+  r.t_min = row[COL_TMIN];
+  r.t_max = row[COL_TMAX];
+  r.live = finite_features(r.phi) && r.t_min <= r.t_max;
+  r.tmin_nonneg = r.t_min >= 0.f;
+  return r;
+}
+
+// The closest-hit sweep of one row against n staged lane groups (tbl,
+// SPARSE_TERMS float4s each, as stage_sparse_groups lays them out) that
+// hold lanes lane0 .. lane0 + 4n - 1. Carries the row's best key and its
+// lane across calls, lanes ascending: a strict < on t_key keeps the
+// smallest lane of equal keys. A warp whose rows are all dead runs no lane
+// group; otherwise every lane group runs the 19-term chain, and the
+// division and mt_accept run only for the lane groups where the warp's
+// vote finds a lane of a live row that quick_reject does not refuse. A
+// thread skips only when the vote, its own included, is false: then every
+// lane of its own is refused and the skip changes nothing for it. All
+// threads of a warp must call it with the same n.
+__device__ __forceinline__ void sweep_lanes(const float4* tbl, int n,
+                                            int lane0, const SweepRow& row,
+                                            float edge_lo, float edge_hi,
+                                            int& best, int& lane) {
+  if (!__any_sync(__activemask(), row.live)) return;
+  for (int c4 = 0; c4 < n; ++c4) {
+    float q[4][4];   // [quantity][lane j of the four]
+    sparse_quads(tbl + (size_t)c4 * SPARSE_TERMS, row.phi, q);
+    const unsigned may = row.live ? maybe_lanes(q, row.tmin_nonneg) : 0u;
+    if (!__any_sync(__activemask(), may != 0)) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float t;
+      if (((may >> j) & 1u) &&
+          mt_accept(q, j, edge_lo, edge_hi, row.t_min, row.t_max, &t)) {
+        const int kb = t_key(t);
+        if (kb < best) {
+          best = kb;
+          lane = lane0 + 4 * c4 + j;
+        }
+      }
+    }
+  }
 }
 
 }  // namespace raycore

@@ -15,26 +15,25 @@
 // triangle's slot cluster * C + s * C_eff + lane (-1 on a miss). A
 // sub-block with q < 0 writes the miss sentinels.
 //
-// What bounds it on this card: arithmetic, as K2: 40 fused multiply-adds
-// per (ray, triangle) test against 67 TFLOP/s of non-tensor float32. Each
-// sub-block moves 64 rows of rays (4 KB) and a 10 KB slice of table at
-// C_eff = 64.
+// What bounds it on this card: arithmetic, as K2: 19 fused multiply-adds
+// per (ray, triangle) test against 67 TFLOP/s of non-tensor float32, the
+// division only where the test may pass. Each sub-block moves 64 rows of
+// rays (4 KB) and a 4.75 KB slice of table at C_eff = 64.
 //
 // Design. The TPU kernel packs PACKS sub-blocks into one block-diagonal
 // matrix product because its matrix unit costs the same at depth 16 and
 // 128; on this card that would only multiply zeros. Here a CTA takes PACKS
 // consecutive sub-blocks (PACKS * SPB_sub * G threads, one per row; 512 at
 // the defaults), so each thread reads only its own sub-cluster's columns.
-// A sub-cluster slice is 10 rows x 4 x C_eff floats: 10 KB at C_eff = 64
-// but 40 KB at C_eff = 256, and PACKS distinct 40 KB slices do not fit in
-// a block's 227 KB. So the CTA stages every sub-block's slice LANE_CHUNK =
-// 64 lanes at a time (10 KB per sub-block, 80 KB at PACKS = 8, above the
-// 48 KB default: opt in), sweeps those lanes, and moves to the next chunk;
-// lanes ascend across chunks, so a strict < keeps the smallest lane. The
-// block count need not be a multiple of PACKS: sub-blocks past the end
-// stage nothing and write nothing. The dot and the epilogue come from
-// featurized.cuh, so a (ray, triangle) test gives the same bits here as in
-// K2, K3 and K4.
+// Each sub-block's threads stage its slice lane_chunk lanes at a time, 19
+// float4s a lane group (stage_sparse_groups: 4.75 KB a sub-block at 64
+// lanes, 38 KB a CTA at PACKS 8), and every thread sweeps the chunk with
+// K2's row sweep (sweep_lanes); lanes ascend across chunks, so the strict
+// < keeps the smallest lane. A chunk as wide as the slice stages it whole
+// (19 KB a sub-block at C_eff = 256). The block count need not be a
+// multiple of PACKS: sub-blocks past the end are dead rows, stage nothing
+// and write nothing. So a (ray, triangle) test gives the same bits here as
+// in K2, K3 and K4.
 
 #include "featurized.cuh"
 
@@ -42,9 +41,8 @@ namespace {
 
 using namespace raycore;
 
-constexpr int COL_TMIN = 13;
-constexpr int COL_TMAX = 14;
-constexpr int LANE_CHUNK = 64;
+// The largest dynamic shared memory a block of this card can use.
+constexpr size_t MAX_SMEM = 232448;
 
 __device__ __forceinline__ int sub_cluster(const int* block_cid, int b,
                                            int n_blocks) {
@@ -57,66 +55,33 @@ __global__ void packed_sweep_kernel(const int* __restrict__ block_subs,
                                     const float* __restrict__ feats,
                                     int* __restrict__ key_out,
                                     int* __restrict__ pair_out, int n_blocks,
-                                    int G, int SPB, int PACKS, int C_eff,
-                                    int SUBC, float edge_lo, float edge_hi) {
-  // PACKS staged slices, each (KFEAT, 4 * CH) floats as float4: row f holds
-  // the four quantity blocks of CH lanes, CH4 float4s each.
+                                    int G, int SPB, int C_eff, int SUBC,
+                                    int CH, float edge_lo, float edge_hi) {
+  // PACKS staged slices of CH / 4 lane groups, SPARSE_TERMS float4s each.
   extern __shared__ float4 stage4[];
   const int RSUB = SPB * G;
   const int p = threadIdx.x / RSUB;   // this thread's sub-block in the CTA
   const int r = threadIdx.x % RSUB;   // its row in the sub-block
-  const int b0 = blockIdx.x * PACKS;
-  const int b = b0 + p;
+  const int b = blockIdx.x * (blockDim.x / RSUB) + p;
   const int q = sub_cluster(block_cid, b, n_blocks);
-  const int CH4 = min(C_eff, LANE_CHUNK) / 4;
-  const int per4 = KFEAT * 4 * CH4;   // float4s staged per sub-block
-  const size_t row4 = (size_t)C_eff * SUBC;   // float4s per table row
-
-  float phi[KFEAT];
-  float t_min = 0.f, t_max = 0.f;
-  if (q >= 0) {
-    const int sub = block_subs[(size_t)b * SPB + r / G];
-    const float* row = tbl + ((size_t)sub * G + r % G) * FEAT;
-    load_phi(row, phi);
-    t_min = row[COL_TMIN];
-    t_max = row[COL_TMAX];
-  }
+  const int sub = q >= 0 ? block_subs[(size_t)b * SPB + r / G] : 0;
+  const SweepRow row =
+      q >= 0 ? load_sweep_row(tbl + ((size_t)sub * G + r % G) * FEAT)
+             : SweepRow{};
+  float4* mine = stage4 + (size_t)p * SPARSE_TERMS * (CH / 4);
+  // The slice's first lane group within its cluster's table.
+  const int g_slice = q >= 0 ? (q % SUBC) * (C_eff / 4) : 0;
 
   int best = INT_MAX;
   int lane = 0;
-  for (int c0 = 0; c0 < C_eff; c0 += 4 * CH4) {
-    const int w4 = min(CH4, (C_eff - c0) / 4);   // float4 lanes this chunk
+  for (int c0 = 0; c0 < C_eff; c0 += CH) {
+    const int n4 = min(CH, C_eff - c0) / 4;   // lane groups this chunk
     __syncthreads();   // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < PACKS * per4; i += blockDim.x) {
-      const int pp = i / per4;
-      const int qq = sub_cluster(block_cid, b0 + pp, n_blocks);
-      const int rem = i % per4;
-      const int c4 = rem % CH4;
-      if (qq < 0 || c4 >= w4) continue;
-      const int f = rem / (4 * CH4);
-      const int k = (rem / CH4) % 4;
-      const float4* src = reinterpret_cast<const float4*>(feats) +
-                          ((size_t)(qq / SUBC) * FEAT + f) * row4 +
-                          ((qq % SUBC) * 4 * C_eff + k * C_eff + c0) / 4 + c4;
-      stage4[i] = __ldg(src);
-    }
+    if (q >= 0)
+      stage_sparse_groups(mine, feats, q / SUBC, C_eff * SUBC, C_eff,
+                          g_slice + c0 / 4, n4, r, RSUB);
     __syncthreads();
-    if (q < 0) continue;
-    const float4* table4 = stage4 + p * per4;
-    for (int c4 = 0; c4 < w4; ++c4) {
-      float qv[4][4];   // [quantity][lane j of the four]
-      featurized_quads(table4, 4 * CH4, 0, CH4, c4, phi, qv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t;
-        const bool ok = mt_accept(qv, j, edge_lo, edge_hi, t_min, t_max, &t);
-        const int kb = ok ? t_key(t) : INT_MAX;
-        if (kb < best) {
-          best = kb;
-          lane = c0 + c4 * 4 + j;
-        }
-      }
-    }
+    sweep_lanes(mine, n4, c0, row, edge_lo, edge_hi, best, lane);
   }
   if (b < n_blocks) {
     const size_t out = (size_t)b * RSUB + r;
@@ -132,16 +97,23 @@ extern "C" {
 // block_subs (n_blocks, SPB) int32; block_cid (n_blocks,) int32 sub-cluster
 // ids; tbl (n_sub + 1, G, 16) float32; feats (K, 16, 4 * C_eff * SUBC)
 // float32, sub-chunk-major; key_out and pair_out (n_blocks * SPB * G,)
-// int32. Needs PACKS * SPB * G <= 1024 threads, C_eff % 4 == 0, 16-byte
-// aligned tbl and feats, and PACKS * 10 KB (at most) of shared memory.
-// Returns cudaGetLastError() or the error of the shared-memory opt-in.
+// int32. Stages lane_chunk lanes of each slice at a time (a multiple of 4;
+// C_eff or more stages whole slices). Needs PACKS * SPB * G <= 1024
+// threads, C_eff % 4 == 0, 16-byte aligned tbl and feats, PACKS * 76 *
+// min(C_eff, lane_chunk) bytes of shared memory (at most 227 KB) and the
+// slack quick_reject assumes (REJECT_EDGE_LO, REJECT_EDGE_HI). Returns
+// cudaGetLastError() or the error of the shared-memory opt-in.
 int raycore_packed_sweep(const void* block_subs, const void* block_cid,
                          const void* tbl, const void* feats, void* key_out,
                          void* pair_out, int n_blocks, int G, int SPB,
-                         int PACKS, int C_eff, int SUBC, float edge_lo,
-                         float edge_hi, void* stream) {
-  const int ch = C_eff < LANE_CHUNK ? C_eff : LANE_CHUNK;
-  const size_t smem = sizeof(float) * KFEAT * 4 * (size_t)ch * PACKS;
+                         int PACKS, int C_eff, int SUBC, int lane_chunk,
+                         float edge_lo, float edge_hi, void* stream) {
+  if (edge_lo < REJECT_EDGE_LO || edge_hi > REJECT_EDGE_HI ||
+      lane_chunk <= 0 || lane_chunk % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ch = C_eff < lane_chunk ? C_eff : lane_chunk;
+  const size_t smem = sizeof(float) * SPARSE_TERMS * (size_t)ch * PACKS;
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         packed_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -154,7 +126,7 @@ int raycore_packed_sweep(const void* block_subs, const void* block_cid,
       static_cast<const int*>(block_subs), static_cast<const int*>(block_cid),
       static_cast<const float*>(tbl), static_cast<const float*>(feats),
       static_cast<int*>(key_out), static_cast<int*>(pair_out), n_blocks, G,
-      SPB, PACKS, C_eff, SUBC, edge_lo, edge_hi);
+      SPB, C_eff, SUBC, ch, edge_lo, edge_hi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,9 +13,10 @@ plain PyTorch version on CPU tensors (the tensor's device alone decides):
 
 The plain sweeps take the featurized test as a ``torch.bmm`` product, as
 the JAX package's matrix product does. ``kernel_order_hits`` evaluates it
-as K3 and K4 do, bit for bit (19-term FMA chains, the division-free
-reject, the rounded epilogue); ``run_worklist_model`` and
-``run_occlusion_model`` run the plain sweeps through it on chosen tiles.
+as the sweep kernels K2-K5 do, bit for bit (19-term FMA chains, dead rays,
+the division-free reject, the rounded epilogue); ``run_worklist_model``
+and ``run_occlusion_model`` run the plain sweeps through it on chosen
+tiles, ``ops/regroup.py``'s models K2's and K5's on chosen blocks.
 
 The drivers keep the JAX names, ``_pallas`` included: stripped,
 ``closest_hit_dense_pallas`` would collide with the XLA rounds engine's
@@ -38,10 +39,10 @@ INT32_MIN = -0x80000000
 EDGE_EPS = 1e-5   # barycentric acceptance slack of the featurized test
 # The plain sweeps' product chunk: 2^27 float32 elements (512 MiB).
 PLAIN_CHUNK_ELEMS = 1 << 27
-# The feature rows that K3's and K4's fused multiply-add chain reads for
-# each quantity, ascending: det rows 0-2, u*det and v*det rows 0-5, t*det
-# rows 6-9 (accel/dense.py:_featurize_tris leaves every other row of its
-# column zero). DENSE_ROWS is the 10-deep chain of K2 and K5.
+# The feature rows that the sweep kernels' fused multiply-add chain reads
+# for each quantity, ascending: det rows 0-2, u*det and v*det rows 0-5,
+# t*det rows 6-9 (accel/dense.py:_featurize_tris leaves every other row of
+# its column zero). DENSE_ROWS is the 10-deep chain they ran before.
 SPARSE_ROWS = ((0, 1, 2), (0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5),
                (6, 7, 8, 9))
 DENSE_ROWS = (tuple(range(10)),) * 4
@@ -245,7 +246,7 @@ def _f32(x, device):
 
 
 def quick_reject(det, udet, vdet, tdet, tmin_nonneg):
-    """The division-free reject of K3 and K4 (``csrc/featurized.cuh:
+    """The division-free reject of K2-K5 (``csrc/featurized.cuh:
     quick_reject``), elementwise on float32 quantities: True where the
     exact epilogue cannot accept. With |det| in REJECT_DET_RANGE and the
     signs of u*det, v*det and t*det turned by det's: u*det or v*det below
@@ -298,17 +299,19 @@ def exact_epilogue(det, udet, vdet, tdet, tmin, tmax):
 
 
 def kernel_order_hits(phi, feats, tmin, tmax, *, sparse=True):
-    """``_featurized_hits`` computed as K3 and K4 compute it, bit for bit:
-    ``kernel_order_quads`` over SPARSE_ROWS, where a ray with a non-finite
-    feature among rows 0-9 accepts nothing (a zero coefficient the 10-deep
-    chain multiplies turns such a feature into a NaN that rejects) and
-    ``quick_reject`` runs before ``exact_epilogue``. ``sparse=False``: over
-    DENSE_ROWS with neither, the kernels before their redesign."""
+    """``_featurized_hits`` computed as the sweep kernels K2-K5 compute it,
+    bit for bit: ``kernel_order_quads`` over SPARSE_ROWS, where a dead ray
+    accepts nothing and ``quick_reject`` runs before ``exact_epilogue``. A
+    ray is dead when a feature among rows 0-9 is not finite (a zero
+    coefficient the 10-deep chain multiplies turns it into a NaN that
+    rejects) or !(tmin <= tmax) (no t lies in its range; K2 and K5 skip
+    such rows). ``sparse=False``: over DENSE_ROWS with neither, the
+    kernels before their redesign."""
     q = kernel_order_quads(phi, feats, SPARSE_ROWS if sparse else DENSE_ROWS)
     ok, t = exact_epilogue(*q, tmin[..., None], tmax[..., None])
     if sparse:
-        finite = torch.isfinite(phi[:, :, :10]).all(dim=2)
-        ok &= finite[..., None] & ~quick_reject(*q, (tmin >= 0)[..., None])
+        live = torch.isfinite(phi[:, :, :10]).all(dim=2) & (tmin <= tmax)
+        ok &= live[..., None] & ~quick_reject(*q, (tmin >= 0)[..., None])
     return ok, t
 
 

@@ -37,9 +37,10 @@ from ..accel.dense import (FEAT, finalize_hits_exact, prim_only_hits,
                            ray_features)
 from ..core.triangle import safe_invdir
 from ..kernels import _build
-from .dense import (EDGE_EPS, INT32_MAX, PLAIN_CHUNK_ELEMS, _t_from_keys,
-                    build_worklist, compact_indices, flat_rays,
-                    interval_entry, pad_rays, phase_a_entry)
+from .dense import (EDGE_EPS, INT32_MAX, PLAIN_CHUNK_ELEMS, _featurized_hits,
+                    _t_from_keys, build_worklist, compact_indices, flat_rays,
+                    interval_entry, kernel_order_hits, pad_rays,
+                    phase_a_entry, tile_rows)
 
 PAYLOADS = ("full", "slim", "occlusion")
 
@@ -48,6 +49,9 @@ PAYLOADS = ("full", "slim", "occlusion")
 # zero, so the extra columns never reach the product.
 COL_TMIN = 13
 COL_TMAX = 14
+# Lanes of a sub-cluster slice that K5 stages at a time (a slice of at
+# most this many lanes is staged whole).
+LANE_CHUNK = 64
 
 
 def ray_table(o, d, t_min, t_max, G: int):
@@ -124,14 +128,16 @@ def run_regrouped_plain(block_subs, block_cid, tbl, feats, *, G: int,
 
 
 def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
-                     SPB_sub: int, C_eff: int, SUBC: int):
+                     SPB_sub: int, C_eff: int, SUBC: int,
+                     hits=_featurized_hits):
     """The packed sub-cluster sweep in plain PyTorch: block b's SPB_sub*G
     rows against the C_eff triangles of sub-cluster q = block_cid[b] =
     cluster*SUBC + s, which are columns [s*4*C_eff, (s+1)*4*C_eff) of
     ``feats[cluster]`` in the sub-chunk-major layout. Returns (key, pair)
     as ``run_regrouped_plain`` does, with pair q*C_eff + lane (the
     triangle's slot cluster*C + s*C_eff + lane); blocks with q < 0 write
-    the miss sentinels."""
+    the miss sentinels. ``hits`` is the featurized test (``torch.bmm`` by
+    default), given each row's t_min and t_max."""
     ROWS = G * SPB_sub
     n_blocks = block_cid.shape[0]
     dev = tbl.device
@@ -146,22 +152,13 @@ def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
         cid = block_cid[lo:lo + step]
         n = cid.shape[0]
         rows = tbl[block_subs[lo:lo + step].long()].reshape(n, ROWS, FEAT)
-        t_min = rows[:, :, COL_TMIN:COL_TMIN + 1]
-        t_max = rows[:, :, COL_TMAX:COL_TMAX + 1]
         # Zero the t-range carrier columns for the product: their feature
         # rows are zero, but inf * 0 would be NaN.
         phi = rows.clone()
         phi[:, :, COL_TMIN:] = 0.0
         qc = cid.clamp_min(0).long()
-        q = torch.bmm(phi, slices[qc // SUBC, :, qc % SUBC])  # (n, ROWS, 4Ce)
-        det, udet, vdet, tdet = q.split(C_eff, dim=2)
-        r = 1.0 / det
-        u = udet * r
-        v = vdet * r
-        t = tdet * r
-        e = EDGE_EPS
-        ok = (u >= -e) & (u <= 1.0 + e) & (v >= -e) & (u + v <= 1.0 + e) \
-            & (t >= t_min) & (t <= t_max)
+        ok, t = hits(phi, slices[qc // SUBC, :, qc % SUBC],
+                     rows[:, :, COL_TMIN], rows[:, :, COL_TMAX])
         kb = torch.where(t > 0.0, t, 0.0).view(torch.int32)
         kb = torch.where(ok, kb, imax)
         key_min = kb.amin(dim=2, keepdim=True)                # (n, ROWS, 1)
@@ -175,6 +172,27 @@ def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
         pairs[lo * ROWS:(lo + n) * ROWS] = \
             torch.where(valid, pair, -1).reshape(-1)
     return keys, pairs
+
+
+def run_packed_model(block_subs, block_cid, tbl, feats, *, G: int,
+                     SPB_sub: int, C_eff: int, SUBC: int, blocks=None):
+    """``run_packed_plain`` through ``kernel_order_hits``: K5's bits (and
+    K2's at SUBC = 1), on the blocks ``blocks`` (int64 ids, all of them
+    when None). Returns (key, pair) of those blocks' rows
+    (``tile_rows(blocks, SPB_sub*G)``)."""
+    if blocks is not None:
+        block_subs, block_cid = block_subs[blocks], block_cid[blocks]
+    return run_packed_plain(block_subs, block_cid, tbl, feats, G=G,
+                            SPB_sub=SPB_sub, C_eff=C_eff, SUBC=SUBC,
+                            hits=kernel_order_hits)
+
+
+def run_regrouped_model(block_subs, block_cid, tbl, feats, *, G: int,
+                        SPB: int, C: int, blocks=None):
+    """``run_regrouped_plain`` through ``kernel_order_hits``: K2's bits,
+    on the blocks ``blocks`` (all of them when None)."""
+    return run_packed_model(block_subs, block_cid, tbl, feats, G=G,
+                            SPB_sub=SPB, C_eff=C, SUBC=1, blocks=blocks)
 
 
 def _sweep_outputs(what, block_subs, block_cid, tbl, feats, *, G: int,
@@ -208,11 +226,12 @@ def _sweep_outputs(what, block_subs, block_cid, tbl, feats, *, G: int,
 def run_regrouped(block_subs, block_cid, tbl, feats, *, G: int, SPB: int,
                   C: int):
     """Kernel K2 (``csrc/regroup_sweep.cu``): ``run_regrouped_plain`` on
-    the card, with the dot evaluated as a 10-deep FMA chain instead of a
-    matrix product. CPU tensors take ``run_regrouped_plain``; CUDA tensors
-    launch the kernel or raise. Ids are not range-checked on the card:
-    ``block_subs`` must index rows of ``tbl`` and ``block_cid`` must be
-    below K (stage 1 produces them so)."""
+    the card, the test evaluated as ``run_regrouped_model`` does (bit for
+    bit) instead of as a matrix product. CPU tensors take
+    ``run_regrouped_plain``; CUDA tensors launch the kernel or raise. Ids
+    are not range-checked on the card: ``block_subs`` must index rows of
+    ``tbl`` and ``block_cid`` must be below K (stage 1 produces them
+    so)."""
     if tbl.device.type == "cpu":
         return run_regrouped_plain(block_subs, block_cid, tbl, feats, G=G,
                                    SPB=SPB, C=C)
@@ -237,13 +256,16 @@ run_regrouped.launches = 0
 
 
 def run_packed(block_subs, block_cid, tbl, feats, *, G: int, SPB_sub: int,
-               PACKS: int, C_eff: int, SUBC: int):
+               PACKS: int, C_eff: int, SUBC: int,
+               lane_chunk: int = LANE_CHUNK):
     """Kernel K5 (``csrc/packed_sweep.cu``): ``run_packed_plain`` on the
-    card, one CTA per PACKS consecutive sub-blocks, with the dot evaluated
-    as K2's 10-deep FMA chain. The block count need not be a multiple of
-    PACKS. CPU tensors take ``run_packed_plain``; CUDA tensors launch the
-    kernel or raise. Ids are not range-checked on the card: ``block_subs``
-    must index rows of ``tbl`` and ``block_cid`` must be below K*SUBC."""
+    card, one CTA per PACKS consecutive sub-blocks, each slice staged
+    ``lane_chunk`` lanes at a time, the test evaluated as
+    ``run_packed_model`` does (bit for bit). The block count need not be a
+    multiple of PACKS. CPU tensors take ``run_packed_plain``; CUDA tensors
+    launch the kernel or raise. Ids are not range-checked on the card:
+    ``block_subs`` must index rows of ``tbl`` and ``block_cid`` must be
+    below K*SUBC."""
     if tbl.device.type == "cpu":
         return run_packed_plain(block_subs, block_cid, tbl, feats, G=G,
                                 SPB_sub=SPB_sub, C_eff=C_eff, SUBC=SUBC)
@@ -258,8 +280,8 @@ def run_packed(block_subs, block_cid, tbl, feats, *, G: int, SPB_sub: int,
         err = lib.raycore_packed_sweep(
             block_subs.data_ptr(), block_cid.data_ptr(), tbl.data_ptr(),
             feats.data_ptr(), keys.data_ptr(), pairs.data_ptr(), n_blocks,
-            G, SPB_sub, PACKS, C_eff, SUBC, -EDGE_EPS, 1.0 + EDGE_EPS,
-            _build.stream_ptr(tbl))
+            G, SPB_sub, PACKS, C_eff, SUBC, lane_chunk, -EDGE_EPS,
+            1.0 + EDGE_EPS, _build.stream_ptr(tbl))
     _build.check(err, "packed_sweep")
     run_packed.launches += 1
     return keys, pairs

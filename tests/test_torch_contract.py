@@ -261,3 +261,60 @@ def test_probe_mains_need_the_card():
     for main in (t_gather.main, t_epi.main, t_mm.main, t_block.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main()
+
+
+def _small_query(sub_chunks=1):
+    mesh = rt.displaced_grid_mesh(n=12, device="cpu")
+    scene = rt.build_dense(mesh, cluster_size=32, sub_chunks=sub_chunks)
+    rng = np.random.default_rng(1)
+    o = torch.as_tensor(rng.uniform(-0.9, 0.9, (200, 3)), dtype=torch.float32)
+    o[:, 2] = 2.0
+    return scene, rt.Ray.create(o, torch.tensor([0, 0, -1.0]))
+
+
+@pytest.mark.parametrize("query", ["closest_hit", "any_hit"])
+def test_query_arguments_of_the_reference(monkeypatch, query):
+    """The JAX package's query arguments on a DenseScene: ``deferred=True``
+    returns (result, None), since every query here syncs; ``tile_size``
+    sets the worklist tile to min(512, max(tile_size, 8)), 512 at the
+    default 16384; a traversal option raises TypeError."""
+    scene, rays = _small_query()
+    fn = getattr(rt, query)
+    engine = ("closest_hit_dense_pallas_auto" if query == "closest_hit"
+              else "any_hit_dense_pallas_auto")
+    real, tiles = getattr(ops_dense, engine), []
+
+    def spy(*a, tile, **kw):
+        tiles.append(tile)
+        return real(*a, tile=tile, **kw)
+    monkeypatch.setattr(ops_dense, engine, spy)
+    plain = fn(scene, rays)
+    res, fin = fn(scene, rays, deferred=True)
+    assert fin is None and torch.equal(res.hit, plain.hit)
+    assert torch.equal(res.prim_idx, plain.prim_idx)
+    for tile_size in (64, 1, 100000):
+        fn(scene, rays, tile_size=tile_size)
+    assert tiles == [512, 512, 64, 8, 512]
+    with pytest.raises(TypeError, match="stack_size"):
+        fn(scene, rays, stack_size=64)
+    with pytest.raises(TypeError):
+        fn(scene, rays, tile_size=64, deferred=True, max_iters=4)
+
+
+def test_prewarm_and_warm_capacity():
+    """``prewarm`` and ``has_warm_capacity`` under the JAX package's names:
+    the port keeps no capacity state, so a sub_chunks == 1 scene counts
+    as warm for the regrouped engine and a sub-chunked one does not;
+    ``prewarm`` runs no query (no kernel launches) and returns None."""
+    assert "prewarm" in rt.__all__ and "has_warm_capacity" in rt.__all__
+    scene, _ = _small_query()
+    scene4, _ = _small_query(sub_chunks=4)
+    assert rt.has_warm_capacity(scene, 1 << 20) is True
+    assert rt.has_warm_capacity(scene, 1 << 20, passes="auto",
+                                payload="slim", occlusion=True) is True
+    assert rt.has_warm_capacity(scene4, 1 << 20) is False
+    for fn in KERNELS:
+        fn.launches = 0
+    assert rt.prewarm(scene, 1 << 20) is None
+    assert rt.prewarm(scene4, 1 << 20, engine="packed", packs=8) is None
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)

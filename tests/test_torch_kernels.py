@@ -390,6 +390,128 @@ def test_packed_sweep_kernel_matches_plain(cuda, SUB, spb_sub, packs):
     assert torch.equal(pk[hk][same_key], pp[hk][same_key])
 
 
+def _adversarial_table(tbl):
+    """The ray table with rows K2 and K5 must refuse: non-finite features
+    (``_non_finite``) and an empty or NaN t range."""
+    tbl = tbl.clone()
+    flat = tbl[:-1].reshape(-1, 16)
+    flat[:, :10] = _non_finite(flat)[:, :10]
+    flat[11::89, ops_regroup.COL_TMIN] = 5.0
+    flat[11::89, ops_regroup.COL_TMAX] = 1.0
+    flat[13::89, ops_regroup.COL_TMAX] = float("nan")
+    return tbl
+
+
+@pytest.mark.parametrize("mesh,C,G,SPB", [("grid", 128, 32, 16),
+                                          ("grid", 64, 16, 32),
+                                          ("blobby", 512, 32, 16)])
+def test_regroup_sweep_kernel_matches_model(cuda, mesh, C, G, SPB):
+    """K2 bit for bit against its kernel-order model on every block of a
+    query: padding blocks (cid -1), dummy subgroup slots, rays with
+    non-finite features and empty t ranges; K5 at one sub-chunk per
+    cluster and PACKS 1 gives the same bits."""
+    tris = (rt.displaced_grid_mesh(n=40, device=cuda) if mesh == "grid"
+            else rt.blobby_mesh(n_theta=64, n_phi=64, device=cuda))
+    scene = rt.build_dense(tris, cluster_size=C)
+    block_cid, block_subs, tbl, _ = _stage1(
+        scene, _incoherent_rays(1024, 2, cuda), 512, G, SPB)
+    block_cid = torch.cat([block_cid, torch.full((3,), -1, dtype=torch.int32,
+                                                 device=cuda)])
+    block_subs = torch.cat([block_subs, block_subs[:3]])
+    tbl = _adversarial_table(tbl)
+    args = (block_subs, block_cid, tbl, scene.tri_feats)
+    kk, pk = ops_regroup.run_regrouped(*args, G=G, SPB=SPB, C=C)
+    km, pm = ops_regroup.run_regrouped_model(*args, G=G, SPB=SPB, C=C)
+    assert torch.equal(kk, km) and torch.equal(pk, pm)
+    assert int((pk >= 0).sum()) > 0
+    k5, p5 = ops_regroup.run_packed(*args, G=G, SPB_sub=SPB, PACKS=1,
+                                    C_eff=C, SUBC=1)
+    assert torch.equal(k5, kk) and torch.equal(p5, pk)
+
+
+@pytest.mark.parametrize("SUB,spb_sub,packs,lane_chunk", [
+    (4, 2, 8, 64), (1, 2, 8, 64), (1, 2, 8, 256), (4, 4, 4, 64)])
+def test_packed_sweep_kernel_matches_model(cuda, SUB, spb_sub, packs,
+                                           lane_chunk):
+    """K5 bit for bit against its kernel-order model at C=256 on a query's
+    own blocks with q = -1 blocks (a count that is not a multiple of
+    PACKS), dummy slots and adversarial rays; at C_eff = 256 in 64-lane
+    chunks and with the slice staged whole."""
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=256, sub_chunks=SUB)
+    xs = torch.linspace(-0.9, 0.9, 64, device=cuda)
+    o = torch.stack(torch.meshgrid(xs, xs, indexing="ij") + (
+        torch.full((64, 64), 3.0, device=cuda),), -1).reshape(-1, 3)
+    rays = rt.Ray.create(o, torch.tensor([0.0, 0.0, -1.0], device=cuda))
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+        rays, 512, 32)
+    bc, bs, tbl, _ = ops_regroup._stage1_packed_core(
+        scene, po, pd, ptmin, ptmax, TILE, G, spb_sub)
+    n_pad = 3 if (bc.shape[0] + 3) % packs else 4
+    bc = torch.cat([bc, torch.full((n_pad,), -1, dtype=torch.int32,
+                                   device=cuda)])
+    bs = torch.cat([bs, bs[:n_pad]])
+    tbl = _adversarial_table(tbl)
+    kw = dict(G=G, SPB_sub=spb_sub, C_eff=256 // SUB, SUBC=SUB)
+    kk, pk = ops_regroup.run_packed(bs, bc, tbl, scene.tri_feats,
+                                    PACKS=packs, lane_chunk=lane_chunk, **kw)
+    km, pm = ops_regroup.run_packed_model(bs, bc, tbl, scene.tri_feats, **kw)
+    assert torch.equal(kk, km) and torch.equal(pk, pm)
+    assert int((pk >= 0).sum()) > 0
+    assert bool((bs == tbl.shape[0] - 1).any())
+
+
+def test_sweeps_of_dead_warps_write_the_miss_sentinels(cuda):
+    """Blocks whose every slot is the dummy subgroup (a whole warp, and a
+    whole CTA, of dead rows) beside real blocks: K2 and K5 write INT32_MAX
+    and -1 there and the real blocks' rows are unchanged."""
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=128)
+    bc, bs, tbl, _ = _stage1(scene, _incoherent_rays(1024, 2, cuda), 512,
+                             32, 16)
+    n_sub = tbl.shape[0] - 1
+    dead_bs = torch.cat([torch.full_like(bs[:4], n_sub), bs])
+    dead_bc = torch.cat([bc[:4], bc])
+    args = (scene.tri_feats,)
+    for run in (lambda s, c: ops_regroup.run_regrouped(
+                    s, c, tbl, *args, G=32, SPB=16, C=128),
+                lambda s, c: ops_regroup.run_packed(
+                    s, c, tbl, *args, G=32, SPB_sub=16, PACKS=1, C_eff=128,
+                    SUBC=1)):
+        kk, pk = run(dead_bs, dead_bc)
+        rows = 4 * 32 * 16
+        assert bool((kk[:rows] == INT32_MAX).all())
+        assert bool((pk[:rows] == -1).all())
+        k0, p0 = run(bs, bc)
+        assert torch.equal(kk[rows:], k0) and torch.equal(pk[rows:], p0)
+        assert int((p0 >= 0).sum()) > 0
+
+
+def test_sweep_wrappers_refuse_a_wider_slack(cuda, monkeypatch):
+    """K2 and K5 refuse an edge slack wider than quick_reject's margins
+    assume (REJECT_EDGE_LO, REJECT_EDGE_HI), and K5 a lane chunk that is
+    not a multiple of 4 or whose slices pass the shared memory."""
+    tbl = torch.zeros((3, 8, 16), device=cuda)
+    feats = torch.zeros((2, 16, 64), device=cuda)
+    subs = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    cid = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    kw = dict(G=8, SPB_sub=2, PACKS=1, C_eff=16, SUBC=1)
+    ops_regroup.run_regrouped(subs, cid, tbl, feats, G=8, SPB=2, C=16)
+    for chunk in (6, 0):
+        with pytest.raises(RuntimeError, match="packed_sweep"):
+            ops_regroup.run_packed(subs, cid, tbl, feats, lane_chunk=chunk,
+                                   **kw)
+    big = torch.zeros((1, 16, 4 * 1024), device=cuda)
+    with pytest.raises(RuntimeError, match="packed_sweep"):
+        ops_regroup.run_packed(subs, cid, tbl, big, G=8, SPB_sub=2, PACKS=4,
+                               C_eff=1024, SUBC=1, lane_chunk=1024)
+    monkeypatch.setattr(ops_regroup, "EDGE_EPS", 2e-5)
+    with pytest.raises(RuntimeError, match="regroup_sweep"):
+        ops_regroup.run_regrouped(subs, cid, tbl, feats, G=8, SPB=2, C=16)
+    with pytest.raises(RuntimeError, match="packed_sweep"):
+        ops_regroup.run_packed(subs, cid, tbl, feats, **kw)
+
+
 def _pinhole_rays(side, device, dist=3.0, half=0.5):
     """A side x side pinhole camera at (0, 0, dist) looking down -z over
     [-half, half]^2 on the plane at distance 1; no ray has x or y = 0."""

@@ -1,4 +1,4 @@
-"""The kernel-order model of the tile-worklist sweeps K3 and K4
+"""The kernel-order model of the sweep kernels K2-K5
 (``ops/dense.py:kernel_order_hits``), on the CPU.
 
 The redesigned kernels chain only the 19 nonzero terms of the featurized
@@ -9,10 +9,14 @@ adversarial inputs: random rays aimed at random triangles, rays along
 shared edges and through shared vertices, det of +-0, subnormal and
 near the reject's range, and rays whose features are not finite. The
 reject must never refuse a test that the exact epilogue accepts. Then the
-model drives the worklist and occlusion sweeps, which must meet the same
-contract against the JAX package's kernels in interpret mode as
-``tests/test_torch_worklist.py`` and ``tests/test_torch_occlusion.py``
-hold the ``torch.bmm`` plain versions to.
+model drives the worklist and occlusion sweeps (K3, K4) and the regroup
+and packed sweeps (K2, K5), which must meet the same contract against the
+JAX package's kernels in interpret mode as ``tests/test_torch_worklist.py``,
+``tests/test_torch_occlusion.py``, ``tests/test_torch_regroup.py`` and
+``tests/test_torch_packed.py`` hold the ``torch.bmm`` plain versions to.
+K2's and K5's model must also equal the 10-deep chain on a query's own
+blocks, where rows that cannot accept (the dummy subgroup, empty t
+ranges, non-finite features) are skipped.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +24,14 @@ import pytest
 import torch
 
 from raycore_tpu.ops import pallas_dense as j_pd
+from raycore_tpu.ops import pallas_regroup as j_pr
 from raycore_tpu_torch.accel.dense import _featurize_tris, ray_features
 from raycore_tpu_torch.ops import dense as t_pd
+from raycore_tpu_torch.ops import regroup as t_pr
+from test_torch_packed import _jax_run_packed, _stage1 as _packed_stage1
+from test_torch_packed import _scenes as _packed_scenes
+from test_torch_regroup import _scenes as _regroup_scenes
+from test_torch_regroup import _sweep_close
 from torch_parity import (jax_tile_padded, jax_worklist_args, np_,
                           pallas_dense_scenes as _scenes, ray_arrays,
                           torch_rays)
@@ -258,3 +268,137 @@ def test_occlusion_model_matches_jax(blobby):
                                    **kw, tiles=tiles)
     assert np.array_equal(np_(sub), np_(got)[np_(t_pd.tile_rows(tiles,
                                                                 TILE))])
+
+
+# The kernel-order model of the closest-hit sweeps K2 and K5
+# (ops/regroup.py:run_regrouped_model, run_packed_model).
+
+
+ROW_BAD_FEATURE = ((3, float("inf")), (6, -float("inf")), (0, float("nan")))
+
+
+def _dense_chain(phi, feats, tmin, tmax):
+    return t_pd.kernel_order_hits(phi, feats, tmin, tmax, sparse=False)
+
+
+def _adversarial_blocks(engine, C, G, SPB, SUBC, seed=0):
+    """A query's own blocks and ray table (the dummy subgroup included),
+    with rows the sweeps must refuse or treat apart: t_min < 0, finite
+    t_max, non-finite features, an empty or NaN t range; plus two blocks
+    with cid = -1. Returns (block_subs, block_cid, tbl, feats, dead rows
+    of the table (n_sub + 1, G))."""
+    rng = np.random.default_rng(seed)
+    R = 1024
+    # Coherent rays cull clusters per subgroup, so clusters end in partly
+    # filled blocks padded with the dummy subgroup.
+    o, d = ray_arrays(R=R, seed=seed, coherent=True)
+    tmin = np.zeros(R, np.float32)
+    tmin[1::9] = -0.5
+    tmax = np.full(R, np.inf, np.float32)
+    tmax[2::5] = rng.uniform(0.5, 3, R)[2::5]
+    rays = torch_rays(o, d, t_min=torch.as_tensor(tmin),
+                      t_max=torch.as_tensor(tmax))
+    if engine == "regroup":
+        _, ts = _regroup_scenes(C=C)
+        po, pd_, ptmin, ptmax, _, G, TILE = t_pr._padded_batch(rays, 256, G)
+        bc, bs, tbl, _ = t_pr._stage1_cm_core(ts, po, pd_, ptmin, ptmax, TILE,
+                                              G, SPB)
+    else:
+        _, ts = _packed_scenes(SUBC, C=C)
+        po, pd_, ptmin, ptmax, _, G, TILE = t_pr._padded_batch(rays, 512, G)
+        bc, bs, tbl, _ = t_pr._stage1_packed_core(ts, po, pd_, ptmin, ptmax,
+                                                  TILE, G, SPB)
+    tbl = tbl.clone()
+    flat = tbl[:-1].reshape(-1, 16)
+    for k, (col, val) in enumerate(ROW_BAD_FEATURE):
+        flat[3 + k::97, col] = val
+    flat[11::89, t_pr.COL_TMIN] = 5.0                 # t_min > t_max
+    flat[11::89, t_pr.COL_TMAX] = 1.0
+    flat[13::89, t_pr.COL_TMAX] = float("nan")
+    bc = torch.cat([bc, torch.full((2,), -1, dtype=torch.int32)])
+    bs = torch.cat([bs, bs[:2]])
+    phi = tbl[:, :, :10]
+    dead = ~torch.isfinite(phi).all(dim=2) \
+        | ~(tbl[:, :, t_pr.COL_TMIN] <= tbl[:, :, t_pr.COL_TMAX])
+    return bs, bc, tbl, ts.tri_feats, dead
+
+
+@pytest.mark.parametrize("engine,C,G,SPB,SUBC", [
+    ("regroup", 128, 32, 16, 1), ("regroup", 64, 16, 32, 1),
+    ("packed", 128, 32, 2, 4), ("packed", 128, 32, 4, 1)])
+def test_sweep_model_matches_the_10_deep_chain(engine, C, G, SPB, SUBC):
+    """K2's and K5's model (19 terms, dead rows, the reject) gives what the
+    10-deep chain gives, (key, pair) bit for bit, on a query's own blocks
+    with adversarial rows; dead rows, the dummy subgroup's slots and the
+    cid = -1 blocks miss."""
+    bs, bc, tbl, feats, dead = _adversarial_blocks(engine, C, G, SPB, SUBC)
+    C_eff = C // SUBC
+    kw = dict(G=G, SPB_sub=SPB, C_eff=C_eff, SUBC=SUBC)
+    km, pm = t_pr.run_packed_model(bs, bc, tbl, feats, **kw)
+    kd, pd_ = t_pr.run_packed_plain(bs, bc, tbl, feats, **kw,
+                                    hits=_dense_chain)
+    assert torch.equal(km, kd) and torch.equal(pm, pd_)
+    if engine == "regroup":
+        kr, pr = t_pr.run_regrouped_model(bs, bc, tbl, feats, G=G, SPB=SPB,
+                                          C=C)
+        assert torch.equal(kr, km) and torch.equal(pr, pm)
+    rows_dead = dead[bs.long()].reshape(-1)       # per (block, slot, ray)
+    hit = pm >= 0
+    assert int(hit.sum()) > 100
+    assert not bool(hit[rows_dead].any())
+    n_sub = tbl.shape[0] - 1
+    assert bool((bs == n_sub).any())              # dummy slots are there
+    assert bool(rows_dead.any()) and bool((dead[:-1]).any())
+    tail = 2 * G * SPB
+    assert bool((km[-tail:] == t_pd.INT32_MAX).all())
+    assert bool((pm[-tail:] == -1).all())
+    # The t_min < 0 rows hit too (the reject's t clause is off there).
+    tmin_neg = (tbl[:, :, t_pr.COL_TMIN] < 0)[bs.long()].reshape(-1)
+    assert bool(hit[tmin_neg].any())
+
+
+@pytest.mark.parametrize("C,G,SPB", [(128, 32, 16), (64, 32, 16),
+                                     (128, 16, 32)])
+def test_regroup_model_matches_jax(C, G, SPB):
+    """K2's model against JAX's ``run_regrouped`` in interpret mode, as
+    ``test_sweep_plain_matches_jax_run_regrouped`` holds the plain
+    version; on a subset of blocks it gives those blocks' rows."""
+    js, ts = _regroup_scenes(C=C)
+    o, d = ray_arrays(R=1024, seed=2)
+    po, pd_, ptmin, ptmax, _, G, TILE = t_pr._padded_batch(
+        torch_rays(o, d), 256, G)
+    bc, bs, tbl, (_, _, nb) = t_pr._stage1_cm_core(ts, po, pd_, ptmin, ptmax,
+                                                   TILE, G, SPB)
+    kj, pj = j_pr.run_regrouped(jnp.asarray(np_(bs)), jnp.asarray(np_(bc)),
+                                jnp.asarray(np_(tbl)), js.tri_feats, G=G,
+                                SPB=SPB, C=C, n_blocks=nb, interpret=True)
+    kw = dict(G=G, SPB=SPB, C=C)
+    kt, pt = t_pr.run_regrouped_model(bs, bc, tbl, ts.tri_feats, **kw)
+    _sweep_close(kj, pj, kt, pt)
+    blocks = torch.tensor([0, nb // 3, nb - 1])
+    ks, ps = t_pr.run_regrouped_model(bs, bc, tbl, ts.tri_feats, **kw,
+                                      blocks=blocks)
+    rows = t_pd.tile_rows(blocks, G * SPB)
+    assert torch.equal(ks, kt[rows]) and torch.equal(ps, pt[rows])
+
+
+@pytest.mark.parametrize("SUBC,spb_sub,packs", [(4, 2, 8), (4, 4, 4),
+                                                (1, 2, 4)])
+def test_packed_model_matches_jax(SUBC, spb_sub, packs):
+    """K5's model against JAX's ``run_packed`` in interpret mode, as
+    ``test_sweep_plain_matches_jax_run_packed`` holds the plain version;
+    on a subset of blocks it gives those blocks' rows."""
+    js, ts = _packed_scenes(SUBC)
+    o, d = ray_arrays(R=1024, seed=2)
+    (bc, bs, tbl, _), _, G, _ = _packed_stage1(ts, o, d, spb_sub=spb_sub)
+    kw = dict(G=G, SPB_sub=spb_sub, C_eff=ts.cluster_size // SUBC,
+              SUBC=SUBC)
+    kj, pj = _jax_run_packed(bs, bc, tbl, js.tri_feats, PACKS=packs, **kw)
+    kt, pt = t_pr.run_packed_model(bs, bc, tbl, ts.tri_feats, **kw)
+    _sweep_close(kj, pj, kt, pt)
+    nb = bc.shape[0]
+    blocks = torch.tensor([nb - 1, 1, nb // 2])
+    ks, ps = t_pr.run_packed_model(bs, bc, tbl, ts.tri_feats, **kw,
+                                   blocks=blocks)
+    rows = t_pd.tile_rows(blocks, G * spb_sub)
+    assert torch.equal(ks, kt[rows]) and torch.equal(ps, pt[rows])

@@ -173,6 +173,25 @@ def test_closest_hit_on_sub_chunk_scene_matches_jax():
         t_pr.closest_hit_regrouped(ts, tr)
 
 
+def test_query_tile_size_and_deferred_match_jax():
+    """The reference's query arguments: ``closest_hit`` and ``any_hit``
+    with tile_size=64 and deferred=True take the worklist at tile 64 in
+    both packages and return (result, None)."""
+    js, ts = _scenes()
+    o, d = ray_arrays(R=300, seed=6)
+    jr, tr = jax_rays(o, d), torch_rays(o, d)
+    ref, jfin = rc.closest_hit(js, jr, tile_size=64, deferred=True)
+    got, fin = rt.closest_hit(ts, tr, tile_size=64, deferred=True)
+    assert jfin is None and fin is None
+    check_worklist_hits(ref, got, _bits(ts))
+    direct = t_pd.closest_hit_dense_pallas_auto(ts, tr, tile=64)
+    assert torch.equal(direct.prim_idx, got.prim_idx)
+    jocc, jfin = rc.any_hit(js, jr, tile_size=64, deferred=True)
+    occ, fin = rt.any_hit(ts, tr, tile_size=64, deferred=True)
+    assert jfin is None and fin is None
+    assert np.array_equal(np_(jocc.hit), np_(occ.hit)) and np_(occ.hit).any()
+
+
 def test_overflow_raises_before_the_sweep():
     """A spreading bundle whose tile needs more than one cluster (JAX's
     test_overflow_detection): one pass at a capacity of one pair per tile
