@@ -13,8 +13,10 @@ count set to 0 just before it and read just after:
   2. build the kernels (K1-K6) from raycore_tpu_torch/csrc;
   3. build the headline scene (displaced grid n=707, 999,698 triangles,
      C=256), cold and warm;
-  4. kernel K1 (phase A) against its plain version on the headline query's
-     stats and bounds: bitwise equal;
+  4. kernel K1 (phase A) against its plain version and its model
+     (ops/dense.py:phase_a_model) on the headline query's stats and
+     bounds: bitwise equal; its time beside an empty launch on its grid
+     (the launch floor) and its bytes and operations bounds;
   5. kernel K2 (regroup sweep) against its plain version on the headline
      query's blocks, within the stated tolerance, and bit for bit against
      its kernel-order model on sampled blocks; K5 (packed sweep) at one
@@ -54,7 +56,8 @@ count set to 0 just before it and read just after:
      65,024-triangle sphere and 512^2 pinhole rays: bit for bit against
      its plain version on a 16,384-ray subset and against the oracle on
      a 4096-ray sample; its bound from the tests this data needs (each
-     test stops once u, then v, fails);
+     test stops once u, then v, fails), and the share of (warp, triangle)
+     steps whose vote sent the warp to the division;
  15-18. the card probes (raycore_tpu_torch/tools/), each at its tool's
      default shapes: every variant of its kernel against its plain
      version, then the tool's rows through the tool's main(), which is
@@ -66,8 +69,8 @@ count set to 0 just before it and read just after:
 
 Every query path (phases 6 and 8-14) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
-its phase-A inputs, and its sweep kernel (K2-K6) on its own blocks or
-rays. Every kernel that a path does not name must not launch on it.
+its phase-A inputs (and against its model), and its sweep kernel (K2-K6)
+on its own blocks or rays. Every kernel that a path does not name must not launch on it.
 Phases 8-11 also hold K3 and K4 bit for bit against their kernel-order
 model (ops/dense.py:kernel_order_hits) on SAMPLE_TILES sampled tiles with
 all their blocks, and phase 11 counts K4's tests per warp beside the
@@ -155,6 +158,11 @@ SLAB_FLOPS = 12
 BRUTE_U_FLOPS = 9 + 5 + 1 + 3 + 5 + 1
 BRUTE_V_FLOPS = 9 + 5 + 1 + 1
 BRUTE_T_FLOPS = 5 + 1
+# Phase A's fast arithmetic (csrc/phase_a.cu:entry_fast) for one (tile,
+# cluster) pair: per axis 2 differences, 4 products, 6 min/max and the
+# t_lo / t_hi updates (14), then the entry's max, the exit's min and their
+# compare. Its selects and the wide test are not counted.
+K1_PAIR_FLOPS = 3 * 14 + 3
 # The dense sweep's cell: sphere_mesh(n_theta, n_phi) (65,024 triangles),
 # a BRUTE_SIDE^2 pinhole view, and the subset its plain version checks.
 BRUTE_SPHERE = (128, 256)
@@ -191,6 +199,19 @@ def cuda_ms(fn, reps, inner=1):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps, calls=50):
+    """Median device time of one call of ``fn`` in ms over ``reps``
+    replays of a CUDA graph of ``calls`` calls: the host's time to launch
+    each call, which can exceed a short kernel's, drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
 
 
 def worklist_tie_rtol(bits):
@@ -425,17 +446,33 @@ def main():
     SPB = 16
 
     # 4. K1 against its plain version, bitwise.
-    stats, bounds, ek, k1_err = phase_a_check(
+    stats, bounds, ek, k1_err, k1_slow = phase_a_check(
         "K1 headline", ops_dense, scene, (po, pd, ptmin, ptmax), TILE)
-    k1_ms = cuda_ms(lambda: ops_dense.phase_a(stats, bounds), 5, inner=50)
+    # K1 is shorter than the host's time to launch it through its
+    # wrapper, so its time on the card comes from a CUDA graph of 50
+    # calls; the wrapper's time a call, launched from the host back to
+    # back, is printed beside it.
+    k1_ms = graph_ms(lambda: ops_dense.phase_a(stats, bounds), 5)
+    k1_host_ms = cuda_ms(lambda: ops_dense.phase_a(stats, bounds), 5,
+                         inner=50)
     k1_plain_ms = cuda_ms(lambda: ops_dense.phase_a_plain(stats, bounds), 5,
                           inner=10)
-    # Per (tile, cluster) entry and axis: 4 differences and 8 products.
-    k1_bound = bound(nbytes(stats, bounds, ek), ek.numel() * 3 * 12)
-    say(4, f"K1 phase_a {tuple(ek.shape)}: bitwise equal, "
-           f"{int(torch.isfinite(ek).sum())} finite pairs; kernel "
-           f"{k1_ms:.4f} ms plain {k1_plain_ms:.4f} ms bound "
-           f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+    # The launch floor: an empty kernel on K1's grid, timed as K1 is.
+    lib = _build.library()
+    grid = ops_dense.phase_a_grid(stats.shape[0], bounds.shape[1])
+    empty_ms = graph_ms(lambda: _build.check(lib.raycore_empty_launch(
+        *grid, ops_dense.PHASE_A_THREADS, _build.stream_ptr(stats)),
+        "empty_launch"), 5)
+    k1_bound = bound(nbytes(stats, bounds, ek), ek.numel() * K1_PAIR_FLOPS)
+    k1_ops_ms = ek.numel() * K1_PAIR_FLOPS / PEAK_FP32_FLOPS * 1e3
+    say(4, f"K1 phase_a {tuple(ek.shape)}: bitwise equal to plain and to "
+           f"phase_a_model, {int(torch.isfinite(ek).sum())} finite pairs, "
+           f"{k1_slow} on the plain arithmetic; "
+           f"kernel {k1_ms:.4f} ms on the card ({k1_host_ms:.4f} ms a call "
+           f"launched from the host), plain {k1_plain_ms:.4f} ms; an empty "
+           f"launch on its grid {grid} {empty_ms:.4f} ms; bound "
+           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}; operations "
+           f"{k1_ops_ms:.4f} ms at {K1_PAIR_FLOPS} a pair)")
 
     # 5. K2 against its plain version on the headline blocks.
     k2 = regroup_sweep_check("K2 headline", ops_regroup, scene,
@@ -782,24 +819,26 @@ def main():
 
 
 def phase_a_check(what, ops_dense, scene, rows, TILE):
-    """K1 against its plain version, bitwise, on the phase-A operands a
-    query builds from ``rows`` (o, d, t_min, t_max) padded to whole tiles
-    of TILE rays. Returns (stats, bounds, entry, max abs error over the
-    finite entries)."""
+    """K1 against its plain version and its model, bitwise, on the phase-A
+    operands a query builds from ``rows`` (o, d, t_min, t_max) padded to
+    whole tiles of TILE rays. Returns (stats, bounds, entry, max abs error
+    over the finite entries, pairs that take the plain arithmetic)."""
     o, d, t_min, t_max = ops_dense.pad_rays(*rows, TILE)
     stats, bounds = ops_dense.phase_a_inputs(
         scene.cluster_min, scene.cluster_max, o, d, t_min, t_max,
         o.shape[0] // TILE, TILE)
     ek = ops_dense.phase_a(stats, bounds)
     ep = ops_dense.phase_a_plain(stats, bounds)
+    em, fast = ops_dense.phase_a_paths(stats, bounds)
     torch.cuda.synchronize()
-    if not torch.equal(ek.view(torch.int32), ep.view(torch.int32)):
-        raise AssertionError(
-            f"{what}: {int((ek.view(torch.int32) != ep.view(torch.int32)).sum())}"
-            f" of {ek.numel()} entries differ from the plain version")
+    for ref, name in ((ep, "plain version"), (em, "model")):
+        if not torch.equal(ek.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(
+                f"{what}: {int((ek.view(torch.int32) != ref.view(torch.int32)).sum())}"
+                f" of {ek.numel()} entries differ from the {name}")
     fin = torch.isfinite(ek)
     err = float((ek[fin] - ep[fin]).abs().max()) if fin.any() else 0.0
-    return stats, bounds, ek, err
+    return stats, bounds, ek, err, int((~fast).sum())
 
 
 def sweep_check(what, stage1, kernel, plain, model, scene, rows, TILE, G,
@@ -1165,27 +1204,31 @@ def pinhole_rays(side, device, dist=3.0, half=0.5):
             torch.as_tensor(d.astype(np.float32), device=device))
 
 
-def brute_tests(table, o, d, ray_chunk=256):
+def brute_tests(ops_brute, table, o, d, ray_chunk=256):
     """K6's tests on this data, by how far each runs: (every (ray, table
-    column) pair, the pairs that pass u, those that then pass v). The
-    kernel stops a test once u (then v) fails, so only those go on. u and
-    v are the kernel's own bits: core.triangle's fused chains."""
-    from raycore_tpu_torch.core import triangle as tri
-    v0 = table[0:3].T
-    e1, e2 = table[3:6].T - v0, table[6:9].T - v0
+    column) pair, the pairs that pass u, those that then pass v, the
+    (warp, triangle) steps where the warp's vote sends it to the division
+    because some ray of the warp may pass u, and all (warp, triangle)
+    steps). Only tests that pass u (then v) need the rest of the test. u,
+    v and the reject are the kernel's own bits (ops/brute.py:pair_tests).
+    Every ray is live (t_min = 0, t_max = inf)."""
+    T = table.shape[1]
+    verts = table.T.reshape(T, 3, 3)
+    W = ops_brute.WARP_RAYS
     n_u = torch.zeros((), dtype=torch.int64, device=o.device)
     n_v = torch.zeros_like(n_u)
+    n_div = torch.zeros_like(n_u)
     for lo in range(0, o.shape[0], ray_chunk):
-        oc, dc = o[lo:lo + ray_chunk, None], d[lo:lo + ray_chunk, None]
-        s1 = tri.cross(dc, e2)
-        inv = 1.0 / tri.dot3(s1, e1)
-        p = oc - v0
-        u = tri.dot3(p, s1) * inv
+        oc, dc = o[lo:lo + ray_chunk], d[lo:lo + ray_chunk]
+        inf = torch.full((oc.shape[0],), float("inf"), device=o.device)
+        _, _, u, v, may = ops_brute.pair_tests(oc, dc, torch.zeros_like(inf),
+                                               inf, verts)
         pass_u = (u >= 0.0) & (u <= 1.0)
-        v = tri.dot3(dc, tri.cross(p, e1)) * inv
         n_u += pass_u.sum()
         n_v += (pass_u & (v >= 0.0) & (u + v <= 1.0)).sum()
-    return o.shape[0] * table.shape[1], int(n_u), int(n_v)
+        n_div += may.reshape(-1, W, T).any(1).sum()
+    steps = -(-o.shape[0] // W) * T
+    return o.shape[0] * T, int(n_u), int(n_v), int(n_div), steps
 
 
 def brute_phase(phase, rt, ops_brute, dev, read_counts, zero_counts):
@@ -1246,7 +1289,7 @@ def brute_phase(phase, rt, ops_brute, dev, read_counts, zero_counts):
     # The operations this data needs: every test up to u, the rest only
     # where u (then v) passes; the table and the rays are read once and
     # the four outputs written once.
-    pairs, n_u, n_v = brute_tests(table, o, d)
+    pairs, n_u, n_v, n_div, steps = brute_tests(ops_brute, table, o, d)
     full = BRUTE_U_FLOPS + BRUTE_V_FLOPS + BRUTE_T_FLOPS
     b = bound(nbytes(*args, *got), pairs * BRUTE_U_FLOPS
               + n_u * BRUTE_V_FLOPS + n_v * BRUTE_T_FLOPS)
@@ -1258,10 +1301,12 @@ def brute_phase(phase, rt, ops_brute, dev, read_counts, zero_counts):
                f"{ms:.3f} ms, plain {plain_ms:.3f} ms on the subset, bound "
                f"{b[0]:.4f} ms ({b[1]}; {pairs} tests, {n_u} pass u, {n_v} "
                f"pass v; {pairs * full / PEAK_FP32_FLOPS * 1e3:.4f} ms if "
-               f"every test ran in full); 4096-ray sample bitwise equal to "
-               f"the oracle")
+               f"every test ran in full); {n_div} of {steps} (warp, "
+               f"triangle) steps ({n_div / steps:.4%}) took the division "
+               f"path; 4096-ray sample bitwise equal to the oracle")
     return dict(launches=launches["brute_sweep"], err=err, ms=ms,
-                plain_ms=plain_ms, bound=b, q_ms=q_ms)
+                plain_ms=plain_ms, bound=b, q_ms=q_ms,
+                div_share=n_div / steps)
 
 
 def shadow_oracle(rt, scene, rays, occ, t_occ, rng):

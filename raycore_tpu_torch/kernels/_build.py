@@ -39,6 +39,7 @@ _F = ctypes.c_float
 # Entry point -> argtypes. Every entry point returns an int error code.
 _SIGNATURES = {
     "raycore_phase_a": (_P, _P, _P, _I, _I, _F, _P),
+    "raycore_empty_launch": (_I, _I, _I, _P),
     "raycore_regroup_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                               _F, _P),
     "raycore_worklist_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -47,8 +48,7 @@ _SIGNATURES = {
                                 _F, _F, _P),
     "raycore_packed_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _F, _P),
-    "raycore_brute_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _P),
+    "raycore_brute_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "raycore_gather_probe": (_P, _P, _P, _I, _I, _I, _P),
     "raycore_epilogue_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                _F, _P),

@@ -115,6 +115,19 @@ def interval_entry(st, bmin, bmax):
     return torch.where(entry <= exit_, entry, inf)
 
 
+# Kernel K1's CTA (csrc/phase_a.cu): PHASE_A_THREADS threads of
+# PHASE_A_CPT clusters each, by a strip of PHASE_A_STRIP tiles.
+PHASE_A_THREADS = 256
+PHASE_A_CPT = 2
+PHASE_A_STRIP = 8
+
+
+def phase_a_grid(n_tiles: int, K: int):
+    """K1's grid of CTAs for an (n_tiles, K) entry matrix."""
+    return (-(-K // (PHASE_A_THREADS * PHASE_A_CPT)),
+            min(-(-n_tiles // PHASE_A_STRIP), 65535))
+
+
 def phase_a_plain(stats, bounds):
     """(n_tiles, 16) stats x (6, K) bounds -> (n_tiles, K)
     ``interval_entry`` of every (tile, cluster) pair. Bounds rows: bmin
@@ -123,10 +136,62 @@ def phase_a_plain(stats, bounds):
                           bounds[3:].T[None])
 
 
+def phase_a_model(stats, bounds):
+    """``phase_a_plain`` computed as kernel K1 computes it, bit for bit
+    (``phase_a_paths``' entry)."""
+    return phase_a_paths(stats, bounds)[0]
+
+
+def phase_a_paths(stats, bounds):
+    """(entry, fast): kernel K1's entry matrix, bit for bit, and the pairs
+    where it takes its fast arithmetic. That is, where the tile's stats
+    and the box lie in the class of
+    ``csrc/phase_a.cu:entry_fast`` (o_lo, o_hi, i_lo, i_hi finite with i
+    nonzero, t_min_lo and t_max_hi not NaN; the box's six bounds finite),
+    per axis the min and max of the 4 products of the extreme differences
+    RN(min(blo, bhi) - max(o_lo, o_hi)) and RN(max(blo, bhi) - min(o_lo,
+    o_hi)) with i_lo and i_hi, which the source proves are the 8 corner
+    products' min and max; elsewhere, and where that gives t_lo = 0 (whose
+    sign depends on which zero each min and max kept), ``phase_a_plain``'s
+    own value."""
+    st = stats[:, None, :14]
+    blo, bhi = bounds[:3].T[None], bounds[3:].T[None]
+    inf = torch.tensor(float("inf"), device=stats.device)
+    bmn, bmx = torch.minimum(blo, bhi), torch.maximum(blo, bhi)
+    o_lo, o_hi, i_lo, i_hi = (st[..., c:c + 3] for c in (0, 3, 6, 9))
+    omn, omx = torch.minimum(o_lo, o_hi), torch.maximum(o_lo, o_hi)
+    t_lo = torch.full(torch.broadcast_shapes(st.shape[:-1], blo.shape[:-1]),
+                      -float("inf"), device=stats.device)
+    t_hi = -t_lo
+    CL = INV_DIR_CLAMP
+    for a in range(3):
+        dmin = bmn[..., a] - omx[..., a]
+        dmax = bmx[..., a] - omn[..., a]
+        p = [dd * ic for dd in (dmin, dmax)
+             for ic in (i_lo[..., a], i_hi[..., a])]
+        lo8 = torch.minimum(torch.minimum(p[0], p[1]),
+                            torch.minimum(p[2], p[3]))
+        hi8 = torch.maximum(torch.maximum(p[0], p[1]),
+                            torch.maximum(p[2], p[3]))
+        wide = ((i_hi[..., a] >= CL) | (i_lo[..., a] <= -CL)) \
+            & (o_hi[..., a] >= blo[..., a]) & (o_lo[..., a] <= bhi[..., a])
+        t_lo = torch.maximum(t_lo, torch.where(wide, -inf, lo8))
+        t_hi = torch.minimum(t_hi, torch.where(wide, inf, hi8))
+    e = torch.maximum(t_lo, st[..., 12])
+    x = torch.minimum(t_hi, st[..., 13])
+    fast = torch.where(e <= x, e, inf)
+    oi = stats[:, :12]
+    tile_ok = torch.isfinite(oi).all(1) & (oi[:, 6:12] != 0).all(1) \
+        & ~torch.isnan(stats[:, 12]) & ~torch.isnan(stats[:, 13])
+    box_ok = torch.isfinite(bounds).all(0)
+    use = tile_ok[:, None] & box_ok[None] & (t_lo != 0)
+    return torch.where(use, fast, phase_a_plain(stats, bounds)), use
+
+
 def phase_a(stats, bounds):
     """Kernel K1 (``csrc/phase_a.cu``): ``phase_a_plain`` computed on the
-    card, bit for bit. CPU tensors take ``phase_a_plain``; CUDA tensors
-    launch the kernel or raise."""
+    card, bit for bit, as ``phase_a_model`` computes it. CPU tensors take
+    ``phase_a_plain``; CUDA tensors launch the kernel or raise."""
     if stats.device.type == "cpu":
         return phase_a_plain(stats, bounds)
     _build.require(stats, torch.float32, "stats")

@@ -19,6 +19,8 @@ from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
 from raycore_tpu_torch.tools._common import check_equal
+from torch_adversarial import (PHASE_A_CASES, brute_case, phase_a_case,
+                               phase_a_signed_zeros)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +76,23 @@ def test_phase_a_kernel_bitwise(cuda, tile):
     ep = ops_dense.phase_a_plain(stats, bounds)
     assert torch.equal(ek.view(torch.int32), ep.view(torch.int32))
     assert 0 < int(torch.isfinite(ek).sum()) < ek.numel()
+
+
+@pytest.mark.parametrize("case", PHASE_A_CASES + ("signed_zeros",))
+def test_phase_a_kernel_adversarial_bitwise(cuda, case):
+    """K1 against its plain version and its model, bit for bit, on
+    tests/torch_adversarial.py's stats and boxes (non-finite stats
+    columns, +-0 directions, clamped axes, padded and empty boxes, t_min_lo
+    > t_max_hi, zero corner products of both signs), with a tile count and
+    K that are not whole strips and CTAs."""
+    st, b = (phase_a_signed_zeros() if case == "signed_zeros"
+             else phase_a_case(case))
+    stats, bounds = (torch.as_tensor(a, device=cuda) for a in (st, b))
+    ek = ops_dense.phase_a(stats, bounds)
+    ep = ops_dense.phase_a_plain(stats, bounds)
+    em = ops_dense.phase_a_model(stats, bounds)
+    assert torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+    assert torch.equal(em.view(torch.int32), ep.view(torch.int32))
 
 
 @pytest.mark.parametrize("mesh,C,G,SPB", [("grid", 128, 32, 16),
@@ -547,6 +566,27 @@ def test_brute_sweep_kernel_bitwise(cuda, padded):
     assert 0 < int((ref[1] >= 0).sum()) < 1000
     for g, r in zip(got, ref):
         assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+@pytest.mark.parametrize("table", ["ragged", "padded"])
+def test_brute_sweep_kernel_adversarial_bitwise(cuda, table):
+    """K6 against its plain version and its model, bit for bit, on
+    tests/torch_adversarial.py's set: degenerate triangles (det +-0,
+    subnormal, inf, NaN), rays through shared edges and vertices, +-0
+    directions, empty and NaN t ranges, NaN origins; 300 rays (not a whole
+    CTA or warp of rays), the table ragged or zero-padded to TRI_BLOCK."""
+    tbl, o, d, t_min, t_max = (torch.as_tensor(a, device=cuda)
+                               for a in brute_case())
+    if table == "padded":
+        pad = -tbl.shape[1] % ops_brute.TRI_BLOCK
+        tbl = torch.cat([tbl, torch.zeros((9, pad), device=cuda)], 1)
+    got = ops_brute.run_brute(tbl, o, d, t_min, t_max)
+    ref = ops_brute.run_brute_plain(tbl, o, d, t_min, t_max)
+    model = ops_brute.run_brute_model(tbl, o, d, t_min, t_max)
+    assert 0 < int((ref[1] >= 0).sum()) < o.shape[0]
+    for g, r, m in zip(got, ref, model):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+        assert torch.equal(m.view(torch.int32), r.view(torch.int32))
 
 
 def test_packed_and_brute_queries_on_card_match_cpu(cuda):

@@ -3,7 +3,9 @@ with the JAX package, on the CPU.
 
 The JAX side runs its Pallas kernel in interpret mode. The entry matrix
 must be bit-for-bit equal, including where the +infs (culled pairs) fall,
-and the stage-1 block lists must be equal block for block.
+and the stage-1 block lists must be equal block for block. Kernel K1's
+arithmetic (``phase_a_model``) must equal the plain version and JAX's
+kernel bit for bit on adversarial stats and boxes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,8 @@ from raycore_tpu.scene import mesh as j_mesh
 from raycore_tpu_torch.ops import dense as t_pd
 from raycore_tpu_torch.ops import regroup as t_pr
 from raycore_tpu_torch.scene import mesh as t_mesh
+from torch_adversarial import (PHASE_A_CASES, phase_a_case,
+                               phase_a_signed_zeros)
 from torch_parity import (CPU, assert_ray_features_close, bits, np_,
                           ray_arrays)
 
@@ -78,6 +82,54 @@ def test_phase_a_against_ragged_boxes_matches_jax():
     got = t_pd.phase_a_entry_bounds(*ta, 8, 128)
     assert got.shape == (8, K)
     assert np.array_equal(bits(ref), bits(got))
+
+
+@pytest.mark.parametrize("case", PHASE_A_CASES)
+def test_phase_a_model_matches_plain_and_jax_bitwise(case):
+    """K1's fast arithmetic (extreme differences, 4 products an axis,
+    plain arithmetic outside its class or where t_lo is zero) against the
+    plain version and JAX's kernel in interpret mode, bit for bit: NaN and
+    +-inf in each stats column, +-0 directions, inverse directions at
+    exactly +-INV_DIR_CLAMP, boxes padded with +-1e30, empty boxes, and
+    t_min_lo > t_max_hi; a tile count and K that are not whole strips and
+    CTAs."""
+    st, b = phase_a_case(case)
+    ref = j_pd._phase_a_fast(jnp.asarray(st), jnp.asarray(b), interpret=True)
+    plain = t_pd.phase_a_plain(torch.as_tensor(st), torch.as_tensor(b))
+    got = t_pd.phase_a_model(torch.as_tensor(st), torch.as_tensor(b))
+    assert np.array_equal(bits(plain), bits(ref))
+    assert np.array_equal(bits(got), bits(plain))
+    fin = np.isfinite(np_(got))
+    assert 0 < fin.sum() < fin.size
+
+
+def test_phase_a_model_keeps_the_sign_of_zero_entries():
+    """Corner products that are zeros of both signs, with t_min_lo +-0:
+    entries of +-0, whose sign the min/max chain's choice among equal zeros
+    decides. The model takes the plain version's own value for them, bit
+    for bit. (The JAX package's min/max on the CPU keep other zeros than
+    PyTorch's on some of these entries, so JAX is not compared here.)"""
+    st, b = phase_a_signed_zeros()
+    plain = t_pd.phase_a_plain(torch.as_tensor(st), torch.as_tensor(b))
+    got = t_pd.phase_a_model(torch.as_tensor(st), torch.as_tensor(b))
+    assert np.array_equal(bits(got), bits(plain))
+    zeros = np_(plain) == 0
+    assert zeros.any() and np.signbit(np_(plain)[zeros]).any()
+
+
+@pytest.mark.parametrize("coherent,zero_dirs,TILE", [
+    (True, False, 256), (False, True, 128)])
+def test_phase_a_model_on_query_stats(coherent, zero_dirs, TILE):
+    """The model on the stats and bounds a query builds, against the
+    plain version, bit for bit."""
+    _, ts = _scenes()
+    arrays = _prepared(1024, 1, coherent, zero_dirs)
+    ta = [torch.as_tensor(a) for a in arrays]
+    ta = t_pd.pad_rays(*ta, TILE)
+    stats, bounds = t_pd.phase_a_inputs(ts.cluster_min, ts.cluster_max, *ta,
+                                        len(arrays[0]) // TILE, TILE)
+    assert np.array_equal(bits(t_pd.phase_a_model(stats, bounds)),
+                          bits(t_pd.phase_a_plain(stats, bounds)))
 
 
 def test_worklist_compaction_matches_jax():

@@ -1,0 +1,187 @@
+"""Adversarial inputs of kernels K1 (phase A) and K6 (the dense sweep),
+made with NumPy from a seed.
+
+This module imports no JAX: the card tests (test_torch_kernels.py) use
+the same inputs as the CPU tests. Every function returns float32 NumPy
+arrays.
+"""
+import numpy as np
+import torch
+
+from raycore_tpu_torch.core.triangle import INV_DIR_CLAMP
+from raycore_tpu_torch.ops import dense as ops_dense
+
+CL = np.float32(INV_DIR_CLAMP)
+F32 = np.float32
+
+# Phase A: a tile count that is not a whole number of the kernel's strips
+# and a cluster count that is not a whole number of its CTAs.
+PHASE_A_TILES = 29
+PHASE_A_K = 300
+PHASE_A_CASES = ("base", "zero_dirs", "clamped", "padded_boxes",
+                 "empty_boxes", "tmin_gt_tmax") \
+    + tuple(f"nonfinite_col{c}" for c in range(14))
+
+
+def _boxes(rng, K):
+    lo = rng.uniform(-1.5, 1.5, (3, K)).astype(F32)
+    hi = (lo + rng.uniform(0.0, 0.6, (3, K))).astype(F32)
+    return np.concatenate([lo, hi])
+
+
+def _stats(rng, n):
+    """(n, 16) tile stats: origin ranges over [-1, 1]^3, inverse-direction
+    ranges of one sign or of both, t_min_lo 0 or above, t_max_hi inf or
+    finite."""
+    st = np.zeros((n, 16), F32)
+    st[:, 0:3] = rng.uniform(-1, 1, (n, 3))
+    st[:, 3:6] = st[:, 0:3] + rng.uniform(0, 0.4, (n, 3))
+    inv = 1.0 / rng.uniform(0.2, 1.0, (n, 3, 2))
+    inv.sort(axis=2)
+    sign = rng.choice([-1.0, 1.0, 0.0], (n, 3))
+    st[:, 6:9] = np.where(sign > 0, inv[..., 0],
+                          np.where(sign < 0, -inv[..., 1], -inv[..., 0]))
+    st[:, 9:12] = np.where(sign > 0, inv[..., 1],
+                           np.where(sign < 0, -inv[..., 0], inv[..., 1]))
+    st[:, 12] = np.where(rng.uniform(size=n) < 0.7, 0.0,
+                         rng.uniform(0, 1, n))
+    st[:, 13] = np.where(rng.uniform(size=n) < 0.7, np.inf,
+                         rng.uniform(1, 5, n))
+    return st
+
+
+def phase_a_case(case, seed=0):
+    """(stats (PHASE_A_TILES, 16), bounds (6, PHASE_A_K)) of one case:
+    - base: random stats and boxes;
+    - zero_dirs: the stats of rays whose directions hold +-0 and tiny
+      components (phase_a_inputs clamps them), over boxes around them;
+    - clamped: inverse-direction bounds at exactly +-INV_DIR_CLAMP, so the
+      parallel-bundle widening runs, against boxes that overlap the
+      origins and boxes that do not;
+    - padded_boxes: the last quarter of the boxes at +-1e30, as the
+      reference pads K;
+    - empty_boxes: a third of the boxes with bmin > bmax on some axis;
+    - tmin_gt_tmax: t_min_lo above (or equal to) t_max_hi;
+    - nonfinite_col{c}: column c of the stats NaN, +inf or -inf, every
+      third tile each."""
+    rng = np.random.default_rng(seed)
+    n, K = PHASE_A_TILES, PHASE_A_K
+    st, b = _stats(rng, n), _boxes(rng, K)
+    if case == "zero_dirs":
+        TILE = 16
+        o = rng.uniform(-1, 1, (n * TILE, 3)).astype(F32)
+        d = rng.normal(size=(n * TILE, 3)).astype(F32)
+        d[::3, 0] = 0.0
+        d[1::3, 1] = -0.0
+        d[2::5, 2] = F32(3e-6)
+        d[3::5, 0] = F32(-3e-6)
+        d[:TILE, :2] = 0.0             # a tile of rays along z
+        t_min = np.zeros(n * TILE, F32)
+        t_max = np.full(n * TILE, np.inf, F32)
+        stats, _ = ops_dense.phase_a_inputs(
+            torch.zeros(1, 3), torch.zeros(1, 3), torch.as_tensor(o),
+            torch.as_tensor(d), torch.as_tensor(t_min),
+            torch.as_tensor(t_max), n, TILE)
+        st = stats.numpy()
+    elif case == "clamped":
+        st[::2, 9] = CL
+        st[1::2, 6] = -CL
+        st[::3, 7], st[::3, 10] = -CL, CL
+        st[1::4, 11] = CL
+        st[1::4, 8] = CL
+        # Boxes that contain some tiles' origin ranges.
+        b[0, :n], b[3, :n] = st[:, 0] - 0.1, st[:, 3] + 0.1
+        b[1, :n], b[4, :n] = st[:, 1], st[:, 4]
+    elif case == "padded_boxes":
+        b[:, 3 * K // 4:] = F32(1e30)
+        b[:3, -5:] = F32(-1e30)
+    elif case == "empty_boxes":
+        sel = rng.uniform(size=K) < 1 / 3
+        ax = rng.integers(0, 3, K)
+        for a in range(3):
+            m = sel & (ax == a)
+            b[a, m], b[3 + a, m] = b[3 + a, m] + F32(0.1), b[a, m]
+    elif case == "tmin_gt_tmax":
+        st[::2, 12] = rng.uniform(2, 3, len(st[::2]))
+        st[::2, 13] = rng.uniform(0.5, 1.9, len(st[::2]))
+        st[1::4, 13] = st[1::4, 12]
+    elif case.startswith("nonfinite_col"):
+        c = int(case[len("nonfinite_col"):])
+        st[0::3, c], st[1::3, c], st[2::3, c] = np.nan, np.inf, -np.inf
+    elif case != "base":
+        raise ValueError(case)
+    return np.ascontiguousarray(st), np.ascontiguousarray(b)
+
+
+def phase_a_signed_zeros(seed=0):
+    """Stats and boxes whose corner products are exact zeros of both
+    signs on one axis (origins and box faces at +-0, an inverse-direction
+    range across 0), with t_min_lo +-0 or negative: entries of +-0 whose
+    sign depends on which zero each min and max keeps."""
+    st, b = phase_a_case("base", seed)
+    st[::2, 2], st[::2, 5] = -0.0, 0.0
+    st[::2, 8], st[::2, 11] = -1.0, 1.0
+    st[1::4, 12], st[3::4, 12] = -0.0, -1.0
+    b[2, ::2], b[5, ::2] = 0.0, -0.0
+    b[2, 1::4], b[5, 1::4] = -0.0, 0.0
+    st[::3, 9:11] = CL
+    return st, b
+
+
+# K6: a ray count that is not a whole number of the kernel's CTAs or
+# warps, and a table that is not a whole TRI_BLOCK.
+BRUTE_RAYS = 300
+
+
+def brute_case(seed=0):
+    """(tbl (9, T), o, d, t_min, t_max) for the dense sweep: a flat 6 x 6
+    grid at z = 0 split along its x == y diagonals (exact binary
+    vertices), a random soup over the unit box, and degenerate triangles:
+    all zero (det +-0, as the table's padding), zero area, tiny (det
+    underflows to a subnormal or to 0), huge (det overflows to inf), and
+    one with a NaN vertex. Rays: random ones at the box, rays through the
+    grid's shared edges and vertices (u or v exactly 0 or 1), rays with
+    +-0 direction components, an empty t range (t_min > t_max), NaN and
+    finite bounds, and a NaN origin."""
+    rng = np.random.default_rng(seed)
+    tris = []
+    n = 6
+    for i in range(n):
+        for j in range(n):
+            p = [np.array([(i + a) / n, (j + c) / n, 0.0])
+                 for a, c in ((0, 0), (1, 0), (1, 1), (0, 1))]
+            tris += [[p[0], p[1], p[2]], [p[0], p[2], p[3]]]
+    soup = rng.uniform(-1, 1, (40, 1, 3)) + rng.normal(0, 0.3, (40, 3, 3))
+    tris += list(soup)
+    tris += [np.zeros((3, 3))] * 3
+    tris += [[[0, 0, 0.5], [1, 1, 0.5], [2, 2, 0.5]]]             # zero area
+    tris += [np.array([[0, 0, 0.2], [1, 0, 0.2], [0, 1, 0.2]]) * s
+             for s in (1e-20, 1e-25, 1e-40)]                        # tiny
+    tris += [np.array([[0, 0, 1], [1, 0, 1], [0, 1, 1]]) * 1e19,   # huge
+             [[0.2, 0.2, 0.3], [np.nan, 0.5, 0.3], [0.2, 0.6, 0.3]]]
+    v = np.asarray(tris, np.float64).astype(F32)
+    tbl = np.ascontiguousarray(v.reshape(len(v), 9).T)
+    R = BRUTE_RAYS
+    o = rng.uniform(-1.2, 1.2, (R, 3)).astype(F32)
+    o[:, 2] = 2.0
+    tgt = rng.uniform(-1, 1, (R, 3)).astype(F32)
+    tgt[:, 2] = 0.0
+    d = (tgt - o).astype(F32)
+    # Rays straight down through grid lines, shared edges and vertices.
+    k = np.arange(100)
+    o[:100, 0] = (k % 7) / F32(n)
+    o[:100, 1] = np.where(k % 2 == 0, (k // 7 % 7) / F32(n),
+                          (k % 7) / F32(n))
+    d[:100] = (0.0, -0.0, -1.0)
+    d[100:110, :2] = 0.0
+    d[110:115] = 0.0                              # a zero direction
+    t_min = np.zeros(R, F32)
+    t_max = np.full(R, np.inf, F32)
+    t_min[120:130], t_max[120:130] = 3.0, 1.0     # empty range
+    t_min[130:135] = np.nan
+    t_max[135:140] = np.nan
+    t_max[140:170] = rng.uniform(0.5, 2.5, 30)
+    t_min[170:190] = rng.uniform(0.5, 2.0, 20)
+    o[190:193] = np.nan
+    return (tbl, np.ascontiguousarray(o), np.ascontiguousarray(d), t_min,
+            t_max)
