@@ -26,6 +26,9 @@ count set to 0 just before it and read just after:
      (the regrouped engine, K1 and K2): median of 5 runs, both kernels
      launched, hit_frac 1.0 at bench.py's 4 decimals and no miss off the
      x == y line (those rays run exactly along the mesh's diagonal edges);
+     the scene's depth_layers and the passes dispatch gives it; the
+     regrouped engine at passes 1 and 4 (what "auto" resolves to there)
+     timed in turns, each held to the query's result ray for ray;
   7. 4096 sampled headline rays and all 1024 on that line against the
      brute-force oracle: hit masks may differ only on the line, on at
      most DIAG_PORT_MISSES_MAX rays that only the oracle hits and
@@ -66,8 +69,19 @@ count set to 0 just before it and read just after:
      key0 seed, which accepts nothing, and under a finite one), 17 the
      small-depth contraction by precision tier (P3), 18 the regroup-block
      ablations (P4), its full block beside K2's time per block.
+ 19. the blobby 1M cell (bench.py's RAYCORE_BENCH_SCENE=blobby:
+     blobby_mesh(707, 707), C=256, the 1024^2 Morton grid), the ordered
+     multiwave's: the scene's build, depth_layers and the passes that
+     "auto" and dispatch resolve; closest_hit through dispatch (K1 once,
+     K2 once or, on the multiwave route, twice); the regrouped engine at
+     passes 1, 2 and 4 timed in turns, with each one's swept (subgroup,
+     cluster) rows; K2 against its plain version and bit for bit against
+     its kernel-order model on sampled blocks of passes=4's wave grid and
+     remainder grid; passes 2 and 4 against passes 1 ray for ray (equal
+     hit masks, a differing prim only as a t tie, the count of bitwise
+     identical rays); a 4096-ray oracle sample.
 
-Every query path (phases 6 and 8-14) also holds the kernels it launched
+Every query path (phases 6, 8-14 and 19) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
 its phase-A inputs (and against its model), and its sweep kernel (K2-K6)
 on its own blocks or rays. Every kernel that a path does not name must not launch on it.
@@ -83,7 +97,8 @@ subgroup that pads a cluster's last block). Phase 13 also times K5 with
 its slices staged whole against the launched 64-lane chunks.
 
 The line before the last is a JSON object with each kernel's launches on
-its path, error against its plain version, times and bound; the line
+its path, error against its plain version, times and bound (K2 twice: on
+the headline and on the blobby cell's multiwave path); the line
 before it the script's wall time; the last line is {"ok": true,
 "device": {...}}.
 """
@@ -168,6 +183,10 @@ K1_PAIR_FLOPS = 3 * 14 + 3
 BRUTE_SPHERE = (128, 256)
 BRUTE_SIDE = 512
 BRUTE_SUBSET = 16384
+# The blobby 1M cell (phase 19): bench.py's RAYCORE_BENCH_SCENE=blobby at
+# its defaults, blobby_mesh(707, 707) and the 1024^2 Morton grid.
+MULTIWAVE_BLOBBY = 707
+MULTIWAVE_SIDE = 1024
 # The card probes' sizes, the tools' defaults: P1's table rows and steps,
 # P2's TILE and blocks, P4's blocks.
 GATHER_SHAPE = (8192, 2048)
@@ -391,6 +410,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on the card")
     import raycore_tpu_torch as rt
+    from raycore_tpu_torch.accel import dispatch
     from raycore_tpu_torch.kernels import _build
     from raycore_tpu_torch.ops import brute as ops_brute
     from raycore_tpu_torch.ops import dense as ops_dense
@@ -554,7 +574,10 @@ def main():
            f"{statistics.median(walls) * 1e3:.2f} ms) on {smi}; hit_frac "
            f"{hit_frac} ({int((~res.hit).sum())} misses, "
            f"{off_diag_misses} off the x == y edge line); launches "
-           f"{launches}; n_blocks {n_blocks}")
+           f"{launches}; n_blocks {n_blocks}; depth_layers "
+           f"{rt.depth_layers(scene)}, dispatch passes "
+           f"{ops_regroup.resolve_passes(scene, dispatch.BIG_BATCH_PASSES)}"
+           )
     # bench.py reports hit_frac to 4 places.
     if round(hit_frac, 4) != 1.0 or off_diag_misses:
         raise AssertionError(f"hit_frac {hit_frac}, {off_diag_misses} misses "
@@ -562,6 +585,7 @@ def main():
     if res.t.shape != (R0,) or not bool(torch.isfinite(res.t).all()):
         raise AssertionError("headline t is not finite or has the wrong "
                              "shape")
+    passes_phase(6, ops_regroup, scene, rays, res, (1, 4), 5)
 
     # 7. Oracle on a seeded sample of the headline rays plus every ray on
     # the x == y line. Hit masks may differ only on that line, where
@@ -763,6 +787,10 @@ def main():
               block_phase(18, p4, dev, read_counts, zero_counts,
                           k2_ms / n_blocks * 1e3)]
 
+    # 19. The blobby 1M cell: the ordered multiwave.
+    k2m = multiwave_phase(19, rt, ops_dense, ops_regroup, dispatch, dev,
+                          read_counts, zero_counts)
+
     kernels = [
         {"name": "phase_a", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/phase_a.cu",
@@ -773,9 +801,18 @@ def main():
         {"name": "regroup_sweep", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/regroup_sweep.cu",
          "replaces": "raycore_tpu/ops/pallas_regroup.py:191",
+         "path": "headline, passes=1",
          "launches": launches["regroup_sweep"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "regroup_sweep", "route": "cuda",
+         "source": "raycore_tpu_torch/csrc/regroup_sweep.cu",
+         "replaces": "raycore_tpu/ops/pallas_regroup.py:191",
+         "path": "blobby 1M, passes=4: wave grid + remainder grid",
+         "launches": k2m["launches"], "max_abs_err": k2m["err"],
+         "ms": k2m["ms"], "plain_ms": k2m["plain_ms"],
+         "bound_ms": k2m["bound"][0], "bound_by": k2m["bound"][1],
+         "library_ms": None},
         {"name": "worklist_sweep", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/worklist_sweep.cu",
          "replaces": "raycore_tpu/ops/pallas_dense.py:116",
@@ -843,18 +880,29 @@ def phase_a_check(what, ops_dense, scene, rows, TILE):
 
 def sweep_check(what, stage1, kernel, plain, model, scene, rows, TILE, G,
                 SPB, C_eff, phase):
-    """A closest-hit sweep kernel (K2 or K5) against its plain version on
-    the blocks ``stage1`` builds from ``rows`` (padded to whole tiles) in
-    blocks of SPB subgroups, and bit for bit against its kernel-order
-    model on sampled blocks (``block_model_check``); the bound of that
-    sweep: each live row (a block with cid >= 0, a slot that is not the
-    dummy subgroup) tests C_eff lanes, and the table read once is the 19
-    C_eff nonzero coefficients of each distinct (sub-)cluster's slice.
-    ``kernel``, ``plain`` and ``model`` take (block_subs, block_cid, tbl,
-    feats), ``model`` also ``blocks=``. Returns a dict: the kernel and its
-    plain version on these blocks (``run``, ``run_plain``), the kernel's
-    output and arguments, blocks, error, bound and a description."""
+    """``grid_check`` on the blocks ``stage1`` builds from ``rows``
+    (padded to whole tiles) in blocks of SPB subgroups; the description
+    names its pair counts."""
     block_cid, block_subs, tbl, counts = stage1(scene, *rows, TILE, G, SPB)
+    pairs = ", ".join(f"{c} {w} pairs" for c, w in zip(
+        counts[:-1], ("coarse", "subgroup", "sub-cluster")))
+    return grid_check(what, kernel, plain, model, scene, block_cid,
+                      block_subs, tbl, G, SPB, C_eff, phase, pairs)
+
+
+def grid_check(what, kernel, plain, model, scene, block_cid, block_subs,
+               tbl, G, SPB, C_eff, phase, pairs):
+    """A closest-hit sweep kernel (K2 or K5) against its plain version on
+    a block grid, within the stated tolerance, and bit for bit against
+    its kernel-order model on sampled blocks (``block_model_check``); the
+    bound of that sweep: each live row (a block with cid >= 0, a slot that
+    is not the dummy subgroup) tests C_eff lanes, and the table read once
+    is the 19 C_eff nonzero coefficients of each distinct (sub-)cluster's
+    slice. ``kernel``, ``plain`` and ``model`` take (block_subs,
+    block_cid, tbl, feats), ``model`` also ``blocks=``. Returns a dict:
+    the kernel and its plain version on these blocks (``run``,
+    ``run_plain``), the kernel's output and arguments, blocks, live rows,
+    error, bound and a description."""
     args = (block_subs, block_cid, tbl, scene.tri_feats)
     kk, pk = kernel(*args)
     kp, pp = plain(*args)
@@ -868,8 +916,6 @@ def sweep_check(what, stage1, kernel, plain, model, scene, rows, TILE, G,
               + table_bytes(block_cid, C_eff), live_rows * C_eff * TEST_FLOPS)
     model_desc = block_model_check(what, (kk, pk), lambda blocks: model(
         *args, blocks=blocks), dummy, G * SPB, phase)
-    pairs = ", ".join(f"{c} {w} pairs" for c, w in zip(
-        counts[:-1], ("coarse", "subgroup", "sub-cluster")))
     desc = (f"{what}: {block_cid.shape[0]} blocks ({pairs}; dummy subgroup "
             f"in {int(dummy.sum())} of {dummy.numel()} slots, "
             f"{float(dummy.float().mean()):.4f}), {n} rows, {live_rows} "
@@ -877,8 +923,8 @@ def sweep_check(what, stage1, kernel, plain, model, scene, rows, TILE, G,
             f"differences {pair_diff} (0 where the keys are equal), max rel "
             f"t {rel:.3g}; {model_desc}")
     return dict(run=lambda: kernel(*args), run_plain=lambda: plain(*args),
-                out=(kk, pk), args=args, blocks=block_cid.shape[0], err=err,
-                bound=b, desc=desc)
+                out=(kk, pk), args=args, blocks=block_cid.shape[0],
+                live_rows=live_rows, err=err, bound=b, desc=desc)
 
 
 def block_model_check(what, got, model, dummy, ROWS, phase):
@@ -923,6 +969,21 @@ def regroup_sweep_check(what, ops_regroup, scene, rows, TILE, G, SPB,
         lambda *a, blocks: ops_regroup.run_regrouped_model(
             *a, **kw, blocks=blocks),
         scene, rows, TILE, G, SPB, C, phase)
+
+
+def regroup_grid_check(what, ops_regroup, scene, block_cid, block_subs, tbl,
+                       G, SPB, phase, pairs):
+    """K2 against its plain version and its kernel-order model on a given
+    block grid."""
+    C = scene.cluster_size
+    kw = dict(G=G, SPB=SPB, C=C)
+    return grid_check(
+        f"{what} regroup_sweep",
+        lambda *a: ops_regroup.run_regrouped(*a, **kw),
+        lambda *a: ops_regroup.run_regrouped_plain(*a, **kw),
+        lambda *a, blocks: ops_regroup.run_regrouped_model(
+            *a, **kw, blocks=blocks),
+        scene, block_cid, block_subs, tbl, G, SPB, C, phase, pairs)
 
 
 def regroup_occlusion_check(ops_dense, ops_regroup, rt, scene, rays):
@@ -1188,6 +1249,165 @@ def packed_phase(phase, rt, ops_dense, ops_regroup, scene, rays, query, res,
                f"t, prim)")
     return dict(blocks=k5["blocks"], err=k5["err"], ms=ms, plain_ms=plain_ms,
                 bound=b, q_ms=q_ms)
+
+
+def passes_phase(phase, ops_regroup, scene, rays, res, passes, reps):
+    """The regrouped engine on ``rays`` at each of ``passes``, timed in
+    turns (forward, then backward), each the median of ``reps`` after a
+    warm-up; each against ``res`` (the query's result) ray for ray: equal
+    hit masks, a differing prim only as a t tie, and the count of rays
+    bitwise identical in (hit, t, prim). Returns {passes: [ms, ms]}."""
+    query = {p: (lambda p=p: ops_regroup.closest_hit_regrouped(
+        scene, rays, tile=2048, passes=p)) for p in passes}
+    out = {p: q() for p, q in query.items()}                # warm-up
+    times = {p: [] for p in passes}
+    for order in (passes, passes[::-1]):
+        for p in order:
+            times[p].append(cuda_ms(query[p], reps))
+    R = res.hit.numel()
+    for p, r in out.items():
+        n_hit, n_tie, _, _ = check_hits(res, r, f"phase {phase} passes={p}")
+        same = (r.hit == res.hit) & (r.prim_idx == res.prim_idx) \
+            & (r.t.view(torch.int32) == res.t.view(torch.int32))
+        say(phase, f"passes={p}: {times[p][0]:.2f} / {times[p][1]:.2f} ms "
+                   f"(median of {reps} after a warm-up, in turns "
+                   f"{', '.join(map(str, passes + passes[::-1]))}); against "
+                   f"the query's result: equal hit masks, {n_tie} prims "
+                   f"differ as t ties, {int(same.sum())} of {R} rays "
+                   f"bitwise identical in (hit, t, prim)")
+    return times
+
+
+def multiwave_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
+                    read_counts, zero_counts):
+    """The blobby 1M cell: bench.py's RAYCORE_BENCH_SCENE=blobby at its
+    defaults (blobby_mesh(707, 707), C=256, the 1024^2 Morton grid from
+    z=3; MULTIWAVE_BLOBBY and MULTIWAVE_SIDE). The scene built cold and
+    warm, its depth_layers and the passes that "auto" and dispatch
+    resolve; closest_hit through dispatch (K1 once, K2 once, or twice
+    where the route is the multiwave); K1 bitwise against its plain
+    version on the query's phase-A inputs; the swept (subgroup, cluster) rows
+    of passes 1, 2 and 4; K2 against its plain version and its
+    kernel-order model on passes=4's wave grid and remainder grid; the
+    regrouped engine at passes 1, 2 and 4 timed in turns and held to the
+    query's result ray for ray; a 4096-ray oracle sample. Returns K2's
+    numbers on the passes=4 path."""
+    mesh = rt.blobby_mesh(n_theta=MULTIWAVE_BLOBBY, n_phi=MULTIWAVE_BLOBBY,
+                          device=dev)
+
+    def build():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = rt.build_dense(mesh, cluster_size=256)
+        torch.cuda.synchronize()
+        return s, (time.perf_counter() - t) * 1e3
+
+    scene, cold_ms = build()
+    scene, warm_ms = build()
+    t = time.perf_counter()
+    layers = rt.depth_layers(scene)
+    layers_ms = (time.perf_counter() - t) * 1e3
+    auto = ops_regroup.auto_passes(scene)
+    routed = ops_regroup.resolve_passes(scene, dispatch.BIG_BATCH_PASSES)
+    say(phase, f"blobby {mesh.vertices.shape[0]} tris, K "
+               f"{scene.n_clusters}; build cold {cold_ms:.1f} ms warm "
+               f"{warm_ms:.1f} ms; depth_layers {layers} ({layers_ms:.1f} "
+               f"ms, once per scene), auto_passes {auto}, dispatch passes "
+               f"{routed}")
+    o, d = morton_grid_rays(MULTIWAVE_SIDE, dev)
+    rays = rt.Ray.create(o, d)
+    R = o.shape[0]
+
+    zero_counts()
+    res = rt.closest_hit(scene, rays)
+    torch.cuda.synchronize()
+    launches = read_counts("blobby 1M closest_hit",
+                           ["phase_a", "regroup_sweep"])
+    want_k2 = 2 if routed > 1 else 1
+    if launches["phase_a"] != 1 or launches["regroup_sweep"] != want_k2:
+        raise AssertionError(f"blobby 1M closest_hit: launches {launches}, "
+                             f"expected phase_a 1 and regroup_sweep "
+                             f"{want_k2}")
+    if res.t.shape != (R,) or not bool(torch.isfinite(res.t).all()):
+        raise AssertionError("blobby 1M: t is not finite or has the wrong "
+                             "shape")
+    hit_frac = float(res.hit.float().mean())
+    if not 0.5 < hit_frac < 1.0:
+        raise AssertionError(f"blobby 1M: hit_frac {hit_frac}")
+
+    # The swept rows of each passes, from stage 1 on the query's rays.
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+        rays, 2048, 32)
+    SPB = 16
+    rows = (po, pd, ptmin, ptmax)
+    phase_a_check(f"K1 (phase {phase})", ops_dense, scene, rows, TILE)
+    swept = {}
+    for p in (1, 2, 4):
+        out = ops_regroup._stage1_cm_core(scene, *rows, TILE, G, SPB,
+                                          waves=p - 1)
+        c = out[3]
+        swept[p] = (c[1], c[2]) if p == 1 else (c[4] + c[2], c[5] + c[3])
+        if p == 1:
+            k2_one_ms = cuda_ms(lambda: ops_regroup.run_regrouped(
+                out[1], out[0], out[2], scene.tri_feats, G=G, SPB=SPB,
+                C=scene.cluster_size), 10)
+    grid4 = out
+    s1_ms = {p: cuda_ms(lambda p=p: ops_regroup._stage1_cm_core(
+        scene, *rows, TILE, G, SPB, waves=p - 1), 3) for p in (1, 4)}
+    say(phase, "swept (subgroup, cluster) rows and blocks: " + ", ".join(
+        f"passes {p} {n} rows in {b} blocks ({swept[1][0] / n:.3f}x fewer "
+        f"than passes 1)" for p, (n, b) in swept.items())
+        + f"; at passes 4 the wave grid {grid4[3][4]} rows in "
+        f"{grid4[3][5]} blocks and the remainder {grid4[3][2]} in "
+        f"{grid4[3][3]}, of {grid4[3][1]} subgroup pairs (K1 bitwise equal "
+        f"to plain on the query's phase-A inputs); stage 1 (with the "
+        f"wave sweep at passes 4) {s1_ms[1]:.3f} ms at passes 1, "
+        f"{s1_ms[4]:.3f} ms at passes 4; K2 on passes 1's grid "
+        f"{k2_one_ms:.3f} ms")
+
+    # K2 on passes=4's two grids.
+    bc, bs, tbl, counts, wave = grid4
+    kw = regroup_grid_check("K2 wave grid (passes 4)", ops_regroup, scene,
+                            wave.block_cid, wave.block_subs, tbl, G, SPB,
+                            phase, f"{counts[4]} wave pairs")
+    kr = regroup_grid_check("K2 remainder grid (passes 4)", ops_regroup,
+                            scene, bc, bs, tbl, G, SPB, phase + 1,
+                            f"{counts[2]} remainder pairs")
+    k2 = {}
+    for name, g in (("wave", kw), ("remainder", kr)):
+        k2[name] = (cuda_ms(g["run"], 10), cuda_ms(g["run_plain"], 3))
+        say(phase, g["desc"] + f"; kernel {k2[name][0]:.3f} ms plain "
+                   f"{k2[name][1]:.3f} ms bound {g['bound'][0]:.4f} ms "
+                   f"({g['bound'][1]})")
+
+    # The engine at passes 1, 2 and 4, in turns, against the query's
+    # result.
+    passes_phase(phase, ops_regroup, scene, rays, res, (1, 2, 4), 3)
+    zero_counts()
+    ops_regroup.closest_hit_regrouped(scene, rays, tile=2048, passes=4)
+    torch.cuda.synchronize()
+    launches4 = read_counts("blobby 1M passes=4", ["phase_a",
+                                                   "regroup_sweep"])
+    if launches4["regroup_sweep"] != 2:
+        raise AssertionError(f"passes=4: launches {launches4}, expected 2 "
+                             f"of regroup_sweep")
+    rng = np.random.default_rng(SEED + phase)
+    idx = torch.as_tensor(rng.choice(R, 4096, replace=False), device=dev)
+    ref = rt.closest_hit_brute(scene.prims, rt.Ray.create(o[idx], d[idx]))
+    n_hit, n_tie, _, _ = check_hits(ref, res.map(lambda a: a[idx]),
+                                    "blobby 1M vs oracle")
+    say(phase, f"sample vs brute oracle: {idx.numel()} rays, {n_hit} hits "
+               f"agree, {n_tie} prim ties; launches through dispatch "
+               f"{launches}, at passes 4 {launches4}")
+    live = kw["live_rows"] + kr["live_rows"]
+    b = bound(sum(nbytes(*g["args"][:3], *g["out"]) for g in (kw, kr))
+              + table_bytes(torch.cat([wave.block_cid, bc]),
+                            scene.cluster_size),
+              live * scene.cluster_size * TEST_FLOPS)
+    return dict(launches=launches4["regroup_sweep"],
+                err=max(kw["err"], kr["err"]),
+                ms=k2["wave"][0] + k2["remainder"][0],
+                plain_ms=k2["wave"][1] + k2["remainder"][1], bound=b)
 
 
 def pinhole_rays(side, device, dist=3.0, half=0.5):

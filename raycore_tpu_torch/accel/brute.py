@@ -1,6 +1,6 @@
 """Brute-force closest hit, the oracle (counterpart of
-``raycore_tpu/accel/brute.py``, partial: ``HitResult`` and
-``closest_hit_brute``).
+``raycore_tpu/accel/brute.py``: ``HitResult``, ``closest_hit_brute`` and
+``any_hit_brute``).
 
 Every ray is tested against every triangle with ``fast_intersect_triangle``;
 the smallest t wins and ties go to the lowest triangle index. Triangles
@@ -109,3 +109,11 @@ def closest_hit_brute(tris: _tri.Triangle, rays: Ray,
                     prim_idx=idx,
                     instance_idx=torch.where(any_h, 0, -1).to(torch.int32))
     return res.map(lambda a: a.reshape(batch + tuple(a.shape[1:])))
+
+
+def any_hit_brute(tris: _tri.Triangle, rays: Ray) -> HitResult:
+    """Occlusion by exhaustive Möller–Trumbore: ``closest_hit_brute`` with
+    t_min forced to 0, as any_hit does. It reports the lowest-index among
+    the closest hits; only the hit mask is the occlusion contract."""
+    rays0 = dataclasses.replace(rays, t_min=torch.zeros_like(rays.t_min))
+    return closest_hit_brute(tris, rays0)

@@ -1,8 +1,8 @@
 """Dense clustered scene: build and exact finalize (counterpart of
 ``raycore_tpu/accel/dense.py``, partial: ``DenseScene``, the build,
-``gather_hit_payload`` and ``finalize_hits_exact``, plus
-``prim_only_hits``, the payload-free result of the occlusion and slim
-queries).
+``gather_hit_payload``, ``finalize_hits_exact`` and ``depth_layers``,
+plus ``prim_only_hits``, the payload-free result of the occlusion and
+slim queries).
 
 Build: triangles are sorted spatially and cut into clusters of C
 consecutive triangles. Each triangle is *featurized*: every Möller–Trumbore
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..core.triangle import Triangle, cross, dot3, safe_invdir
@@ -57,6 +58,10 @@ class DenseScene:
     instance_of_prim: torch.Tensor | None = None
     # int32 instance slot per original-order triangle, or None when every
     # hit reports instance 0.
+    _depth_layers: float | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    # depth_layers' value for this scene, computed at first use.
+    # ``dataclasses.replace`` makes a new scene without it.
 
     @property
     def n_clusters(self) -> int:
@@ -264,6 +269,64 @@ def build_dense(tris: Triangle, cluster_size: int = 256,
                       root_aabb=root, n_prims=cap, cluster_size=cluster_size,
                       sub_chunks=sub_chunks, payload_mask=payload_mask,
                       instance_of_prim=inst)
+
+
+def depth_layers(scene: DenseScene, n_probe_side: int = 16,
+                 gap_frac: float = 0.02) -> float:
+    """The median over the three axes of the mean number of disjoint
+    depth layers that the cluster AABBs form along axis-aligned probe
+    rays: an open sheet reads about 1 along its height axis, a closed or
+    multi-layer surface about 2 along at least two axes.
+    ``passes="auto"`` (``ops/regroup.py:auto_passes``) takes the ordered
+    multiwave where it reaches 1.6.
+
+    Host NumPy over the (K, 3) bounds, copied from the device once per
+    scene and cached on the scene. Clusters that touch the capacity
+    padding at PAD_COORD are left out. A gap counts as a layer boundary
+    only past ``gap_frac`` of the scene's extent along the probe axis.
+    The arithmetic is the JAX package's, float32 step for step."""
+    if scene._depth_layers is None:
+        scene._depth_layers = _depth_layers(
+            scene.cluster_min.cpu().numpy(), scene.cluster_max.cpu().numpy(),
+            n_probe_side, gap_frac)
+    return scene._depth_layers
+
+
+def _depth_layers(bmin, bmax, n_probe_side: int, gap_frac: float) -> float:
+    bmin = np.asarray(bmin, np.float32)
+    bmax = np.asarray(bmax, np.float32)
+    real = np.all(np.abs(bmax) < PAD_COORD * 0.5, axis=1) \
+        & np.all(np.abs(bmin) < PAD_COORD * 0.5, axis=1)
+    bmin, bmax = bmin[real], bmax[real]
+    if bmin.shape[0] == 0:
+        return 1.0
+    per_axis = []
+    for a in range(3):
+        u, v = (a + 1) % 3, (a + 2) % 3
+        ext_a = float(bmax[:, a].max() - bmin[:, a].min())
+        gap = gap_frac * max(ext_a, 1e-9)
+        us = np.linspace(bmin[:, u].min(), bmax[:, u].max(),
+                         n_probe_side + 2, dtype=np.float32)[1:-1]
+        vs = np.linspace(bmin[:, v].min(), bmax[:, v].max(),
+                         n_probe_side + 2, dtype=np.float32)[1:-1]
+        U, V = np.meshgrid(us, vs, indexing="ij")
+        Uf, Vf = U.reshape(-1, 1), V.reshape(-1, 1)
+        inside = (Uf >= bmin[None, :, u]) & (Uf <= bmax[None, :, u]) \
+            & (Vf >= bmin[None, :, v]) & (Vf <= bmax[None, :, v])
+        lo = np.where(inside, bmin[None, :, a], np.inf)
+        hi = np.where(inside, bmax[None, :, a], -np.inf)
+        order = np.argsort(lo, axis=1)
+        lo_s = np.take_along_axis(lo, order, axis=1)
+        hi_s = np.take_along_axis(hi, order, axis=1)
+        cummax = np.maximum.accumulate(hi_s, axis=1)
+        new_group = (lo_s[:, 1:] > cummax[:, :-1] + gap) \
+            & np.isfinite(lo_s[:, 1:])
+        any_hit = np.isfinite(lo_s[:, 0])
+        n_hit = int(any_hit.sum())
+        if n_hit:
+            per_axis.append(
+                float((new_group.sum(axis=1) + any_hit).sum()) / n_hit)
+    return float(np.median(per_axis)) if per_axis else 1.0
 
 
 def _hit_instance_idx(scene: DenseScene, orig, hit):

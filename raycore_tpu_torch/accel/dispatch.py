@@ -12,6 +12,7 @@ sub_chunks == 1 scene goes to the regrouped occlusion, every other batch
 to the worklist occlusion. The warmth and opt-in gates of the JAX rule
 guard against remote compiles and are not ported: ``has_warm_capacity``
 and ``prewarm`` keep the JAX package's names for its callers. The
+regrouped closest hit runs at ``BIG_BATCH_PASSES``. The
 results contract does not depend on the engine.
 """
 from __future__ import annotations
@@ -21,6 +22,13 @@ from .dense import DenseScene
 # Queries below this size do not amortize the regrouped engines' stage 1;
 # they stay on the tile worklist.
 REGROUP_MIN_RAYS = 1 << 19
+# The regrouped engine's ``passes`` on the big-batch route. The JAX
+# package passes "auto" there, which resolves to 4 on both 1M-triangle
+# scenes the port is timed on (the heightfield as well as blobby); on the
+# H100 passes=4 ran slower on the heightfield and no faster beyond the
+# runs' spread on blobby, so the route keeps 1 (ROADMAP.md, the dispatch
+# decision).
+BIG_BATCH_PASSES = 1
 
 
 def _big_batch(scene, rays) -> bool:
@@ -28,8 +36,8 @@ def _big_batch(scene, rays) -> bool:
     if not isinstance(scene, DenseScene):
         raise NotImplementedError(
             f"queries on {type(scene).__name__}: only DenseScene is ported "
-            f"(the BVH and instanced scenes are ROADMAP.md queue 1 items 8 "
-            f"and 9)")
+            f"(the BVH and instanced scenes are ROADMAP.md queue 1 items 3 "
+            f"and 4)")
     n_rays = 1
     for s in rays.batch_shape:
         n_rays *= s
@@ -62,8 +70,8 @@ def scene_closest_hit(scene, rays, *, tile_size: int = 16384,
         raise TypeError(f"dense-engine queries do not accept {trav_kw}")
     if big and scene.sub_chunks == 1:
         from ..ops.regroup import closest_hit_regrouped
-        res = closest_hit_regrouped(scene, rays, tile=2048, passes=1,
-                                    payload=payload)
+        res = closest_hit_regrouped(scene, rays, tile=2048,
+                                    passes=BIG_BATCH_PASSES, payload=payload)
     elif big:
         from ..ops.regroup import closest_hit_packed
         res = closest_hit_packed(scene, rays, tile=2048)

@@ -1,4 +1,5 @@
-"""Carry rays, triangles and built scenes across as NumPy arrays.
+"""Carry rays, triangles, boxes, transforms and built scenes across as
+NumPy arrays.
 
 The dict form of a scene is what ``np.asarray`` gives for each field of a
 ``DenseScene`` from either package, so a scene built by one package can be
@@ -11,8 +12,10 @@ import numpy as np
 import torch
 
 from .accel.dense import DenseScene
+from .core.bounds import Bounds2, Bounds3
 from .core.device import default_device
 from .core.ray import Ray
+from .core.transforms import Transformation
 from .core.triangle import Triangle
 
 _SCENE_ARRAYS = ("tri_feats", "cluster_min", "cluster_max", "sub_bounds",
@@ -44,6 +47,24 @@ def ray_from_numpy(o, d, t_min, t_max, time=None, device=None) -> Ray:
                       time=(0.0 if time is None else
                             _tensor(np.asarray(time, np.float32), device)),
                       device=device)
+
+
+def bounds_from_numpy(p_min, p_max, device=None):
+    """``Bounds3`` from (..., 3) corners, ``Bounds2`` from (..., 2)."""
+    device = default_device(device)
+    p_min = _tensor(np.asarray(p_min, np.float32), device)
+    p_max = _tensor(np.asarray(p_max, np.float32), device)
+    cls = Bounds2 if p_min.shape[-1] == 2 else Bounds3
+    return cls(p_min=p_min, p_max=p_max)
+
+
+def transformation_from_numpy(m, m_inv, device=None) -> Transformation:
+    """``Transformation`` from a (..., 4, 4) matrix and its inverse, as the
+    JAX package's ``Transformation`` holds them."""
+    device = default_device(device)
+    return Transformation(m=_tensor(np.asarray(m, np.float32), device),
+                          m_inv=_tensor(np.asarray(m_inv, np.float32),
+                                        device))
 
 
 def dense_scene_from_numpy(d: dict, device=None) -> DenseScene:

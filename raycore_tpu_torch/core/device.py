@@ -17,3 +17,13 @@ def default_device(device=None) -> torch.device:
             "no CUDA device: the port's entry points default to the card; "
             "pass device='cpu' to run the plain versions on the CPU")
     return torch.device("cuda")
+
+
+def as_f32(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor. A tensor stays on its device unless
+    ``device`` is given; anything else goes to ``default_device(device)``,
+    the CUDA card by default."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=default_device(device))

@@ -14,6 +14,11 @@
   5. A grouped segment-min merges each ray's rows (one per candidate
      cluster), and the exact finalize recomputes the winner's payload.
 
+The ordered multiwave (``passes`` >= 2) sweeps each subgroup's passes - 1
+nearest clusters first (a wave grid on K2), prunes the other pairs
+against the best t that sweep found, sweeps what is left (a remainder
+grid on K2) and merges the two results per ray.
+
 The packed sub-cluster sweep (``closest_hit_packed``) refines each
 surviving (subgroup, cluster) pair further, against the AABBs of the
 cluster's SUBC sub-chunks of C/SUBC triangles, and kernel K5
@@ -21,11 +26,10 @@ cluster's SUBC sub-chunks of C/SUBC triangles, and kernel K5
 that share a sub-cluster. Dispatch takes it for large batches on scenes
 with sub_chunks >= 2.
 
-The block grid is sized exactly from the data (a host sync on the
-compactions and one ``.item()`` on the block count); nothing is sized by
-a capacity guess. Only ``passes=1`` and the compact stage 1 are ported;
-every payload ("full", "slim" and any_hit's "occlusion") takes the compact
-stage 1.
+The block grids are sized exactly from the data (a host sync on each
+compaction and one ``.item()`` on each block count); nothing is sized by
+a capacity guess. Only the compact stage 1 is ported; every payload
+("full", "slim" and any_hit's "occlusion") takes it, at any ``passes``.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ import dataclasses
 
 import torch
 
-from ..accel.dense import (FEAT, finalize_hits_exact, prim_only_hits,
-                           ray_features)
+from ..accel.dense import (FEAT, depth_layers, finalize_hits_exact,
+                           prim_only_hits, ray_features)
 from ..core.triangle import safe_invdir
 from ..kernels import _build
 from .dense import (EDGE_EPS, INT32_MAX, PLAIN_CHUNK_ELEMS, _featurized_hits,
@@ -313,17 +317,15 @@ def combine_rows_grouped(keys, pairs, block_subs, G: int, SPB: int,
     return kk[:n_sub].reshape(-1), pp[:n_sub].reshape(-1)
 
 
-def _stage1_cm_core(scene, o, d, t_min, t_max, TILE, G, SPB):
-    """Sort-free stage 1: phase A, compaction of the transposed entry
-    matrix (so the coarse worklist comes out cluster-major), subgroup
-    refine, a second order-preserving compaction, then the rank pack.
-    Returns (block_cid, block_subs, tbl, counts) with counts
-    (coarse pairs, subgroup pairs, blocks)."""
+def subgroup_pairs(scene, o, d, t_min, t_max, TILE, G):
+    """Phase A, compaction of the transposed entry matrix (so the coarse
+    worklist comes out cluster-major), then the subgroup refine and a
+    second order-preserving compaction. Returns (P, sub, cid, entry,
+    stats): the coarse pair count; the subgroup ids, cluster ids and
+    refined entry bounds (all finite) of the surviving (subgroup,
+    cluster) pairs, cluster-major; the (n_sub, 14) subgroup stats."""
     SPT = TILE // G
-    R = o.shape[0]
-    n_tiles = R // TILE
-    n_sub = R // G
-
+    n_tiles = o.shape[0] // TILE
     entry = phase_a_entry(scene, o, d, t_min, t_max, n_tiles, TILE)
     # build_worklist on entry.T: rows are cluster ids, cols tile ids, and
     # the compaction order is cluster-major.
@@ -335,17 +337,118 @@ def _stage1_cm_core(scene, o, d, t_min, t_max, TILE, G, SPB):
     spt = torch.arange(SPT, dtype=torch.int32, device=o.device)
     sub = (tile_ids[:, None] * SPT + spt[None, :]).reshape(-1)
     cid = cluster_ids[:, None].expand(P, SPT).reshape(-1)
-    sel = compact_indices(torch.isfinite(fine).reshape(-1))
-    block_cid, block_subs = pack_presorted_cluster_major(
-        cid[sel], sub[sel], SPB=SPB, n_sub=n_sub)
+    fine = fine.reshape(-1)
+    sel = compact_indices(torch.isfinite(fine))
+    return P, sub[sel], cid[sel], fine[sel], stats
+
+
+def wave_select(entry, sub, cid, waves: int, n_sub: int, K: int):
+    """The ordered waves' choice: per subgroup, ``waves`` rounds of a
+    segment min over its (subgroup, cluster) pairs. A round takes the
+    smallest finite entry, the smallest cluster id among equal entries,
+    and sets the chosen pair's entry to +inf before the next round.
+    Returns (chosen, entry_w): (n_sub, waves) int32 cluster ids, K where
+    a subgroup has no candidate left, and the entries with +inf at every
+    chosen pair. ``scatter_reduce("amin")`` as in
+    ``combine_rows_grouped``: a min does not depend on order."""
+    dev = entry.device
+    s = sub.long()
+    chosen = []
+    for _ in range(waves):
+        fin = torch.isfinite(entry)
+        e = torch.where(fin, entry, 3e38)
+        emin = torch.full((n_sub + 1,), float("inf"), device=dev) \
+            .scatter_reduce(0, s, e, "amin")
+        tied = fin & (e == emin[s])
+        csel = torch.full((n_sub + 1,), K, dtype=torch.int32, device=dev) \
+            .scatter_reduce(0, s, torch.where(tied, cid, K), "amin")
+        chosen.append(csel[:n_sub])
+        entry = torch.where(cid == csel[s], float("inf"), entry)
+    return torch.stack(chosen, dim=1), entry
+
+
+@dataclasses.dataclass
+class WaveSweep:
+    """What the ordered waves leave for stage 2 (and for checks): per-ray
+    (k1, p1) of the wave sweep after the grouped combine, the wave grid,
+    each subgroup's chosen clusters (``wave_select``) and its bound
+    ``ub``, the largest t1 of its rays."""
+
+    k1: torch.Tensor          # (n_sub*G,) int32
+    p1: torch.Tensor          # (n_sub*G,) int32
+    block_cid: torch.Tensor   # (B1,) int32
+    block_subs: torch.Tensor  # (B1, SPB) int32
+    chosen: torch.Tensor      # (n_sub, W) int32, K where none
+    ub: torch.Tensor          # (n_sub,) float32
+
+
+def _stage1_cm_core(scene, o, d, t_min, t_max, TILE, G, SPB, waves=0):
+    """Sort-free stage 1: ``subgroup_pairs``, then the rank pack.
+    Returns (block_cid, block_subs, tbl, counts) with counts (coarse
+    pairs, subgroup pairs, blocks).
+
+    ``waves`` = W > 0 is the ordered multiwave (passes = W + 1): each
+    subgroup's W nearest clusters (``wave_select``) are swept first, in
+    one grid, and the rest of its pairs are kept only where their entry
+    is at most the largest best t of its G rays after that sweep, ``ub``
+    (+inf where one of them has no hit yet). The prune is conservative:
+    a cluster that no ray can enter before its current best hit cannot
+    improve it. It only drops pairs, so the kept ones stay cluster-major
+    and pack by rank. Returns (block_cid, block_subs, tbl, counts, wave)
+    then: the remainder grid, counts (coarse pairs, subgroup pairs,
+    remainder pairs, remainder blocks, wave pairs, wave blocks) and
+    ``wave`` a ``WaveSweep``."""
+    n_sub = o.shape[0] // G
+    P, sub, cid, entry, _ = subgroup_pairs(scene, o, d, t_min, t_max, TILE,
+                                           G)
     tbl = ray_table(o, d, t_min, t_max, G)
-    counts = (P, sel.shape[0], block_cid.shape[0])
-    return block_cid, block_subs, tbl, counts
+    if waves == 0:
+        block_cid, block_subs = pack_presorted_cluster_major(
+            cid, sub, SPB=SPB, n_sub=n_sub)
+        return block_cid, block_subs, tbl, (P, sub.shape[0],
+                                            block_cid.shape[0])
+    K = scene.n_clusters
+    chosen, entry_w = wave_select(entry, sub, cid, waves, n_sub, K)
+    # The wave grid: the chosen pairs, made cluster-contiguous by a stable
+    # sort. The order of blocks changes no result: K2 computes each row
+    # alone and the combine is a min.
+    flat = chosen.reshape(-1)
+    pick = compact_indices(flat < K)
+    order = torch.sort(flat[pick], stable=True).indices
+    wsub = (pick // waves).to(torch.int32)[order]
+    bc1, bs1 = pack_presorted_cluster_major(flat[pick][order], wsub, SPB=SPB,
+                                            n_sub=n_sub)
+    k1r, p1r = run_regrouped(bs1, bc1, tbl, scene.tri_feats, G=G, SPB=SPB,
+                             C=scene.cluster_size)
+    k1, p1 = combine_rows_grouped(k1r, p1r, bs1, G, SPB, n_sub)
+    t1 = torch.where(k1 == INT32_MAX, float("inf"), _t_from_keys(k1, 0))
+    ub = t1.reshape(n_sub, G).amax(dim=1)
+    # The chosen pairs carry +inf; the finite test keeps them out of the
+    # remainder where ub is +inf too (ROADMAP Q7).
+    keep = compact_indices(torch.isfinite(entry_w)
+                           & (entry_w <= ub[sub.long()]))
+    block_cid, block_subs = pack_presorted_cluster_major(
+        cid[keep], sub[keep], SPB=SPB, n_sub=n_sub)
+    counts = (P, sub.shape[0], keep.shape[0], block_cid.shape[0],
+              pick.shape[0], bc1.shape[0])
+    return block_cid, block_subs, tbl, counts, WaveSweep(
+        k1=k1, p1=p1, block_cid=bc1, block_subs=bs1, chosen=chosen, ub=ub)
+
+
+def merge_pass1(key, pair, k1, p1):
+    """Merge the wave sweep's per-ray (k1, p1) into the remainder's (key,
+    pair), the JAX package's rule: the wave's result wins on a smaller
+    key, and on an equal key where it names a triangle and the remainder
+    names none or a larger one."""
+    better1 = (k1 < key) | ((k1 == key) & (p1 >= 0)
+                            & ((p1 < pair) | (pair < 0)))
+    return torch.where(better1, k1, key), torch.where(better1, p1, pair)
 
 
 def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
-                 payload: str = "full"):
-    """Sweep, grouped combine and finalize. ``o``/``d`` are the unpadded
+                 payload: str = "full", wave: WaveSweep | None = None):
+    """Sweep, grouped combine, the merge of the wave sweep's results
+    (``wave``, passes >= 2) and finalize. ``o``/``d`` are the unpadded
     rays; ``R_pad`` is the padded ray count."""
     R = o.shape[0]
     n_sub = R_pad // G
@@ -353,6 +456,8 @@ def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
                               G=G, SPB=SPB, C=scene.cluster_size)
     out_key, out_pair = combine_rows_grouped(key, pair, block_subs, G, SPB,
                                              n_sub)
+    if wave is not None:
+        out_key, out_pair = merge_pass1(out_key, out_pair, wave.k1, wave.p1)
     if payload == "slim":
         # Exact hit, t (the full-precision winning key), prim, instance and
         # metadata; zero triangle and barycentric.
@@ -378,21 +483,47 @@ def _padded_batch(rays, tile: int, subgroup: int):
 
 
 def _closest_hit_regrouped_cm(scene, rays, *, tile: int, subgroup: int,
-                              spb: int, payload: str = "full"):
+                              spb: int, payload: str = "full",
+                              passes: int = 1):
     """Compact-stage-1 driver: pad the flat batch to whole tiles, run both
     stages, restore the batch shape."""
     batch = rays.batch_shape
     o, d, t_min, t_max, R0, G, TILE = _padded_batch(rays, tile, subgroup)
-    block_cid, block_subs, tbl, _ = _stage1_cm_core(
-        scene, o, d, t_min, t_max, TILE, G, spb)
+    block_cid, block_subs, tbl, *rest = _stage1_cm_core(
+        scene, o, d, t_min, t_max, TILE, G, spb, waves=passes - 1)
+    wave = rest[1] if passes > 1 else None
     res = _stage2_core(scene, block_cid, block_subs, tbl, o[:R0], d[:R0],
-                       G, spb, o.shape[0], payload)
+                       G, spb, o.shape[0], payload, wave)
     return res.map(lambda a: a.reshape(batch + tuple(a.shape[1:])))
 
 
+# depth_layers at or above which passes="auto" takes the multiwave.
+AUTO_DEPTH_LAYERS = 1.6
+AUTO_PASSES = 4
+
+
+def auto_passes(scene) -> int:
+    """passes="auto": AUTO_PASSES on a depth-complex scene (the cluster
+    AABBs form at least AUTO_DEPTH_LAYERS disjoint depth layers,
+    ``accel/dense.py:depth_layers``), else 1. A host statistic cached on
+    the scene."""
+    return AUTO_PASSES if depth_layers(scene) >= AUTO_DEPTH_LAYERS else 1
+
+
+def resolve_passes(scene, passes) -> int:
+    """``passes`` as an int >= 1: "auto" through ``auto_passes``; any
+    other value that is not an int >= 1 raises ValueError."""
+    if passes == "auto":
+        return auto_passes(scene)
+    if isinstance(passes, bool) or not isinstance(passes, int) \
+            or passes < 1:
+        raise ValueError(f"passes must be an int >= 1 or 'auto', got "
+                         f"{passes!r}")
+    return passes
+
+
 def closest_hit_regrouped(scene, rays, *, tile: int = 512, subgroup: int = 32,
-                          spb: int = 16, passes: int = 1,
-                          payload: str = "full"):
+                          spb: int = 16, passes=1, payload: str = "full"):
     """Exact closest hit via the cluster-major regrouped sweep.
 
     payload: "full" gathers the winning triangle and returns the exact
@@ -401,18 +532,20 @@ def closest_hit_regrouped(scene, rays, *, tile: int = 512, subgroup: int = 32,
     barycentric; "occlusion" is ``any_hit_regrouped``'s mode: hit, prim
     and instance only.
 
-    Only passes=1 is ported: every refined candidate is swept."""
+    passes: 1 sweeps every refined candidate; N >= 2 is the ordered
+    multiwave, which sweeps each subgroup's N - 1 nearest clusters first
+    and prunes the rest against the best t found (``_stage1_cm_core``);
+    "auto" resolves through ``auto_passes``. The results do not depend on
+    it. The default is 1, as ``docs/engines.md`` documents (the JAX
+    package's signature says 2)."""
     if scene.sub_chunks != 1:
         raise ValueError("regrouped engine requires sub_chunks=1 scenes")
-    if passes != 1:
-        raise NotImplementedError(
-            f"passes={passes!r}: the ordered multiwave (passes >= 2, "
-            f"'auto') is ROADMAP.md queue 1 item 7, not ported yet")
+    passes = resolve_passes(scene, passes)
     if payload not in PAYLOADS:
         raise ValueError(f"payload must be one of {PAYLOADS}, got {payload}")
     return _closest_hit_regrouped_cm(scene, rays, tile=tile,
                                      subgroup=subgroup, spb=spb,
-                                     payload=payload)
+                                     payload=payload, passes=passes)
 
 
 def any_hit_regrouped(scene, rays, *, tile: int = 2048, subgroup: int = 32,
@@ -440,8 +573,7 @@ def subchunk_bounds(scene):
 
 
 def _stage1_packed_core(scene, o, d, t_min, t_max, TILE, G, SPB_sub):
-    """Stage 1 of the packed sweep: phase A, the cluster-major coarse
-    worklist and the subgroup refine as in ``_stage1_cm_core``, then each
+    """Stage 1 of the packed sweep: ``subgroup_pairs``, then each
     surviving (subgroup, cluster) pair expands to its SUBC sub-clusters,
     each refined against its sub-chunk AABB. A stable sort on the
     sub-cluster id makes equal ids adjacent (within a sub-cluster the
@@ -450,24 +582,11 @@ def _stage1_packed_core(scene, o, d, t_min, t_max, TILE, G, SPB_sub):
     counts) with block_cid the sub-cluster id and counts (coarse pairs,
     subgroup pairs, sub-cluster pairs, blocks)."""
     SUBC = scene.sub_chunks
-    SPT = TILE // G
-    R = o.shape[0]
-    n_tiles = R // TILE
-    n_sub = R // G
+    n_sub = o.shape[0] // G
     dev = o.device
-
-    entry = phase_a_entry(scene, o, d, t_min, t_max, n_tiles, TILE)
-    cluster_ids, tile_ids = build_worklist(entry.T)
-    stats = subgroup_stats(o, d, t_min, t_max, G)
-    fine = refine_pairs(stats, tile_ids, cluster_ids, scene.cluster_min,
-                        scene.cluster_max, SPT, n_tiles)       # (P, SPT)
-    P = tile_ids.shape[0]
-    spt = torch.arange(SPT, dtype=torch.int32, device=dev)
-    sub = (tile_ids[:, None] * SPT + spt[None, :]).reshape(-1)
-    cid = cluster_ids[:, None].expand(P, SPT).reshape(-1)
-    sel = compact_indices(torch.isfinite(fine).reshape(-1))
-    qsub, qcid = sub[sel], cid[sel]                            # (Q,)
-    Q = sel.shape[0]
+    P, qsub, qcid, _, stats = subgroup_pairs(scene, o, d, t_min, t_max,
+                                             TILE, G)             # (Q,)
+    Q = qsub.shape[0]
 
     sbmin, sbmax = subchunk_bounds(scene)
     crow = (qcid[:, None] * SUBC

@@ -1,7 +1,7 @@
 """Procedural meshes (counterpart of ``raycore_tpu/scene/mesh.py``,
-partial: ``uv_sphere``, ``build_triangles``, ``sphere_mesh``,
-``box_mesh``, ``plane_mesh``, ``blobby_mesh`` and
-``displaced_grid_mesh``).
+partial: ``build_triangles``, ``build_triangle``, ``is_degenerate_face``,
+``uv_sphere``, ``sphere_mesh``, ``box_mesh``, ``plane_mesh``,
+``blobby_mesh`` and ``displaced_grid_mesh``).
 
 The geometry is built on the host in NumPy with the same code and the same
 ``default_rng(seed)`` draws as the JAX package, so both packages get the
@@ -63,6 +63,32 @@ def build_triangles(vertices, faces, normals=None, uvs=None, metadata=None,
                     tangents=f32(np.zeros_like(tri_v)), uv=f32(tri_uv),
                     metadata=torch.as_tensor(meta.astype(np.int64),
                                              device=device))
+
+
+def build_triangle(v0, v1, v2, metadata=0, device=None) -> Triangle:
+    """A batch of one triangle from three points, with its face normal at
+    every vertex; ``device`` defaults to the CUDA card."""
+    device = default_device(device)
+    v = np.stack([np.asarray(v0, np.float32), np.asarray(v1, np.float32),
+                  np.asarray(v2, np.float32)])[None]
+    n = np.cross(v[0, 1] - v[0, 0], v[0, 2] - v[0, 0])
+    ln = np.linalg.norm(n)
+    n = n / ln if ln > 0 else n
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return Triangle(vertices=f32(v), normals=f32(np.tile(n, (1, 3, 1))),
+                    tangents=f32(np.zeros((1, 3, 3))),
+                    uv=f32(np.zeros((1, 3, 2))),
+                    metadata=torch.as_tensor(np.asarray(
+                        [metadata], np.uint32).astype(np.int64),
+                        device=device))
+
+
+def is_degenerate_face(vertices, face) -> bool:
+    """Whether a face of an indexed mesh has a zero cross product (host
+    NumPy)."""
+    v = np.asarray(vertices, np.float32)[np.asarray(face)]
+    cr = np.cross(v[2] - v[0], v[1] - v[0])
+    return bool(np.dot(cr, cr) <= 0.0)
 
 
 def uv_sphere(center=(0, 0, 0), radius=1.0, n_theta=16, n_phi=32):

@@ -19,8 +19,8 @@ from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
 from raycore_tpu_torch.tools._common import check_equal
-from torch_adversarial import (PHASE_A_CASES, brute_case, phase_a_case,
-                               phase_a_signed_zeros)
+from torch_adversarial import (PHASE_A_CASES, brute_case, morton_grid,
+                               phase_a_case, phase_a_signed_zeros)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,6 +159,28 @@ def test_closest_hit_on_card_matches_cpu_and_oracle(cuda):
             rt_, gt = other.t.cpu()[h][differ], got.t.cpu()[h][differ]
             assert float(((gt - rt_).abs() / rt_.clamp_min(1e-6)).max()) \
                 < 2e-6
+
+
+def test_multiwave_on_card_matches_cpu(cuda):
+    """The ordered multiwave (passes=4) on a small blobby: the card's
+    result equals the CPU's (equal hit and prim, t within 2e-6), with K2
+    launched on the wave grid and on the remainder grid."""
+    o, d = morton_grid(64)
+    res = {}
+    for dev in ("cpu", cuda):
+        scene = rt.build_dense(rt.blobby_mesh(64, 64, device=dev),
+                               cluster_size=64)
+        rays = rt.Ray.create(torch.as_tensor(o, device=dev),
+                             torch.as_tensor(d, device=dev))
+        before = ops_regroup.run_regrouped.launches
+        res[str(dev)] = ops_regroup.closest_hit_regrouped(scene, rays,
+                                                          passes=4)
+    assert ops_regroup.run_regrouped.launches == before + 2
+    ref, got = res["cpu"], res[str(cuda)]
+    assert torch.equal(ref.hit, got.hit.cpu())
+    assert torch.equal(ref.prim_idx, got.prim_idx.cpu())
+    torch.testing.assert_close(got.t.cpu(), ref.t, rtol=2e-6, atol=0)
+    assert 0.5 < float(ref.hit.float().mean()) < 1.0
 
 
 def _worklist(scene, rays, tile):

@@ -234,10 +234,14 @@ def test_unported_options_raise():
     _, ts = _scenes()
     o, d = ray_arrays(R=64, seed=1)
     tr = torch_rays(o, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_pr.closest_hit_regrouped(ts, tr, passes=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_pr.closest_hit_regrouped(ts, tr, passes="auto")
+    # passes takes an int >= 1 or "auto" (tests/test_torch_multiwave.py);
+    # anything else is refused.
+    with pytest.raises(ValueError, match="passes"):
+        t_pr.closest_hit_regrouped(ts, tr, passes=0)
+    with pytest.raises(ValueError, match="passes"):
+        t_pr.closest_hit_regrouped(ts, tr, passes=-1)
+    with pytest.raises(ValueError, match="passes"):
+        t_pr.closest_hit_regrouped(ts, tr, passes="fast")
     with pytest.raises(ValueError):
         t_pr.closest_hit_regrouped(ts, tr, payload="fat")
     # The regrouped engine takes only sub_chunks == 1 scenes, as in the
@@ -246,7 +250,9 @@ def test_unported_options_raise():
                           cluster_size=32, sub_chunks=4)
     with pytest.raises(ValueError):
         t_pr.closest_hit_regrouped(sub4, tr)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 items 3 and 4"):
         rt.closest_hit(object(), tr)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 items 3 and 4"):
         rt.any_hit(object(), tr)

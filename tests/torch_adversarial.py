@@ -1,5 +1,6 @@
 """Adversarial inputs of kernels K1 (phase A) and K6 (the dense sweep),
-made with NumPy from a seed.
+and the Morton-ordered ray grid of the multiwave tests, made with NumPy
+from a seed.
 
 This module imports no JAX: the card tests (test_torch_kernels.py) use
 the same inputs as the CPU tests. Every function returns float32 NumPy
@@ -185,3 +186,24 @@ def brute_case(seed=0):
     o[190:193] = np.nan
     return (tbl, np.ascontiguousarray(o), np.ascontiguousarray(d), t_min,
             t_max)
+
+
+def morton_grid(side, half=0.75, z=3.0):
+    """(o, d): a side x side grid of downward rays over [-half, half]^2 at
+    height z in Morton order, as the 1M cells' rays are (side a power of
+    two). A subgroup of 32 rays is then a compact patch whose rays share
+    clusters, so the multiwave's prune has bounds to work with."""
+    xs = np.linspace(-half, half, side, dtype=F32)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    o = np.stack([X, Y, np.full_like(X, z)], -1).reshape(-1, 3)
+
+    def spread(v):
+        for s, m in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333),
+                     (1, 0x55555555)):
+            v = (v | (v << np.uint64(s))) & np.uint64(m)
+        return v
+    zz = spread(np.arange(side, dtype=np.uint64))
+    code = (zz[:, None] << np.uint64(1)) | zz[None, :]
+    o = np.ascontiguousarray(o[np.argsort(code.reshape(-1), kind="stable")])
+    d = np.broadcast_to(np.array([0.0, 0.0, -1.0], F32), o.shape)
+    return o, np.ascontiguousarray(d)
