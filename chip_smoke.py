@@ -80,8 +80,21 @@ count set to 0 just before it and read just after:
      remainder grid; passes 2 and 4 against passes 1 ray for ray (equal
      hit masks, a differing prim only as a t tie, the count of bitwise
      identical rays); a 4096-ray oracle sample.
+ 20. the 256-instance dynamic frame (tools/tpu_instanced_bench.py at its
+     defaults): 256 instances of three base meshes pushed one by one into
+     a TLAS, sync and bake_instanced (C=128), cold and warm; closest_hit
+     on a 1024^2 downward grid through dispatch (the instanced engine:
+     K1 once and K2 once, in its pairrow mode, and no other kernel); five
+     frames that move every instance, each refresh_instances plus the
+     query, in Mrays/s; K1 bitwise against its plain version and K2
+     against its plain version and bit for bit against its kernel-order
+     model on the frame's blocks; a 4096-ray sample against the
+     traversal and the brute-force oracle on the baked world soup
+     (flatten_world_triangles) within 2e-4, every disagreement at a
+     triangle's edge; any_hit's hit mask equal to the closest hit's; the
+     traversal timed on 65,536 of the rays.
 
-Every query path (phases 6, 8-14 and 19) also holds the kernels it launched
+Every query path (phases 6, 8-14, 19 and 20) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
 its phase-A inputs (and against its model), and its sweep kernel (K2-K6)
 on its own blocks or rays. Every kernel that a path does not name must not launch on it.
@@ -97,8 +110,9 @@ subgroup that pads a cluster's last block). Phase 13 also times K5 with
 its slices staged whole against the launched 64-lane chunks.
 
 The line before the last is a JSON object with each kernel's launches on
-its path, error against its plain version, times and bound (K2 twice: on
-the headline and on the blobby cell's multiwave path); the line
+its path, error against its plain version, times and bound (K2 three
+times: on the headline, on the blobby cell's multiwave path and on the
+256-instance frame in its pairrow mode); the line
 before it the script's wall time; the last line is {"ok": true,
 "device": {...}}.
 """
@@ -187,6 +201,34 @@ BRUTE_SUBSET = 16384
 # its defaults, blobby_mesh(707, 707) and the 1024^2 Morton grid.
 MULTIWAVE_BLOBBY = 707
 MULTIWAVE_SIDE = 1024
+# The 256-instance frame (phase 20): tools/tpu_instanced_bench.py at its
+# defaults. INSTANCED_COUNT instances of three base meshes, centres from
+# default_rng(INSTANCED_SEED), a INSTANCED_SIDE^2 downward grid, and
+# INSTANCED_FRAMES frames that each move every instance by
+# INSTANCED_STEP; the traversal is timed on a 1-in-16 subset of the rays.
+INSTANCED_COUNT = 256
+INSTANCED_SEED = 7
+INSTANCED_SIDE = 1024
+INSTANCED_FRAMES = 5
+INSTANCED_STEP = 0.03
+INSTANCED_TRAVERSAL_STRIDE = 16
+# Against the oracle (world space) and the traversal, the engine tests in
+# each instance's local space, so t agrees within
+# tests/test_instanced_engine.py's 2e-4 (rtol and atol). Its featurized
+# test accepts a barycentric slack of 1e-5 where the exact tests accept
+# none, and its table rounds differently (ROADMAP F1), so a ray that
+# passes within that of a triangle's outer edge (a box's rim, a
+# silhouette) may hit it in one test and pass it in the other: a hit-mask
+# difference, or both hit and name winners whose t differ past the
+# tolerance. Such a disagreement is allowed where the nearer of the two
+# winners, tested exactly in float64 in world space, has a barycentric
+# coordinate within INSTANCED_EDGE of 0, and on at most
+# INSTANCED_EDGE_RATE of the rays compared (at least 4). Seen: 1 of the
+# 4096 sampled rays on an NVIDIA H100 (PERF.md §5), whose t differed by
+# 0.054.
+INSTANCED_T_TOL = 2e-4
+INSTANCED_EDGE = 1e-4
+INSTANCED_EDGE_RATE = 1e-3
 # The card probes' sizes, the tools' defaults: P1's table rows and steps,
 # P2's TILE and blocks, P4's blocks.
 GATHER_SHAPE = (8192, 2048)
@@ -791,6 +833,10 @@ def main():
     k2m = multiwave_phase(19, rt, ops_dense, ops_regroup, dispatch, dev,
                           read_counts, zero_counts)
 
+    # 20. The 256-instance dynamic frame: K1 and K2's pairrow mode.
+    k2i = instanced_phase(20, rt, ops_dense, ops_regroup, dev, read_counts,
+                          zero_counts)
+
     kernels = [
         {"name": "phase_a", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/phase_a.cu",
@@ -812,6 +858,14 @@ def main():
          "launches": k2m["launches"], "max_abs_err": k2m["err"],
          "ms": k2m["ms"], "plain_ms": k2m["plain_ms"],
          "bound_ms": k2m["bound"][0], "bound_by": k2m["bound"][1],
+         "library_ms": None},
+        {"name": "regroup_sweep", "route": "cuda",
+         "source": "raycore_tpu_torch/csrc/regroup_sweep.cu",
+         "replaces": "raycore_tpu/ops/pallas_regroup.py:191",
+         "path": "256-instance frame, pairrow",
+         "launches": k2i["launches"], "max_abs_err": k2i["err"],
+         "ms": k2i["ms"], "plain_ms": k2i["plain_ms"],
+         "bound_ms": k2i["bound"][0], "bound_by": k2i["bound"][1],
          "library_ms": None},
         {"name": "worklist_sweep", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/worklist_sweep.cu",
@@ -1408,6 +1462,256 @@ def multiwave_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
                 err=max(kw["err"], kr["err"]),
                 ms=k2["wave"][0] + k2["remainder"][0],
                 plain_ms=k2["wave"][1] + k2["remainder"][1], bound=b)
+
+
+def instanced_frame_rays(side, device):
+    """tools/tpu_instanced_bench.py's rays: a side x side grid over
+    [-8.5, 8.5]^2 at z = 6 looking down, in row order."""
+    xs = torch.linspace(-8.5, 8.5, side, dtype=torch.float32, device=device)
+    X, Y = torch.meshgrid(xs, xs, indexing="ij")
+    o = torch.stack([X, Y, torch.full_like(X, 6.0)], -1).reshape(-1, 3)
+    d = torch.tensor([0.0, 0.0, -1.0], device=device).expand_as(o)
+    return o, d.contiguous()
+
+
+def edge_margin(v, o, d):
+    """min(u, v, 1 - u - v) of rays (R, 3) against triangles (R, 3, 3),
+    Möller–Trumbore in float64; NaN where the ray is parallel."""
+    v, o, d = v.double(), o.double(), d.double()
+    e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    s1 = torch.linalg.cross(d, e2)
+    r = 1.0 / (s1 * e1).sum(1)
+    dv = o - v[:, 0]
+    u = (dv * s1).sum(1) * r
+    w = (d * torch.linalg.cross(dv, e1)).sum(1) * r
+    return torch.minimum(torch.minimum(u, w), 1.0 - u - w)
+
+
+def instanced_check(what, ref, got, ref_rows, got_rows, soup, o, d):
+    """The engine's result ``got`` against a reference in world space,
+    ray for ray: equal hit masks, t within INSTANCED_T_TOL and the same
+    winner, or else the same t within that tolerance (a tie). A ray that
+    breaks this is a disagreement; each must be explained by an edge (the
+    nearer winner's float64 barycentric margin within INSTANCED_EDGE of
+    0), and there may be at most INSTANCED_EDGE_RATE of the rays (at
+    least 4). ``ref_rows``/``got_rows`` are each winner's row of the world
+    soup ``soup``. Returns (rows where both hit, differing winners that
+    tie, disagreements)."""
+    rh, gh = ref.hit, got.hit
+    both = rh & gh
+    rt_, gt = ref.t, got.t
+    t_ok = (gt - rt_).abs() <= INSTANCED_T_TOL * (1 + rt_.abs())
+    same = ref_rows == got_rows
+    bad = (rh != gh) | (both & ~t_ok)
+    n_bad = int(bad.sum())
+    if n_bad:
+        near_got = gh & (~rh | (gt < rt_))
+        rows = torch.where(near_got, got_rows, ref_rows)[bad]
+        m = edge_margin(soup.vertices[rows.clamp_min(0)], o[bad], d[bad])
+        unexplained = int((~(m.abs() <= INSTANCED_EDGE)).sum())
+        limit = max(4, int(INSTANCED_EDGE_RATE * rh.numel()))
+        if unexplained or n_bad > limit:
+            raise AssertionError(
+                f"{what}: {n_bad} disagreements (at most {limit}), "
+                f"{unexplained} not at an edge; margins "
+                f"{m.cpu().numpy().tolist()[:8]}")
+    return int(both.sum()), int((both & t_ok & ~same).sum()), n_bad
+
+
+def instanced_phase(phase, rt, ops_dense, ops_regroup, dev, read_counts,
+                    zero_counts):
+    """The 256-instance dynamic frame (tools/tpu_instanced_bench.py at its
+    defaults): build (the pushes, sync, bake_instanced) cold and warm; the
+    query through dispatch with exactly one K1 and one K2 launch; the
+    frames; K1 and K2 against their plain versions (and K2 against its
+    kernel-order model) on the last frame's operands; an oracle and
+    traversal sample; any_hit; the traversal's time. Returns K2's
+    numbers on this path."""
+    from types import SimpleNamespace
+    from raycore_tpu_torch.ops import instanced as ops_inst
+    rng = np.random.default_rng(INSTANCED_SEED)
+    bases = [rt.sphere_mesh(radius=0.45, n_theta=16, n_phi=32, device=dev),
+             rt.box_mesh(device=dev),
+             rt.sphere_mesh(radius=0.3, n_theta=10, n_phi=20, device=dev)]
+    N = INSTANCED_COUNT
+    centers = np.stack([rng.uniform(-8, 8, N), rng.uniform(-8, 8, N),
+                        rng.uniform(-1, 1, N)], -1).astype(np.float32)
+
+    def transform(i, shift):
+        m = np.eye(3, 4, dtype=np.float32)
+        m[:, 3] = centers[i] + shift
+        return m
+
+    def build():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr = rt.TLAS(device=dev)
+        handles = [mgr.push(bases[i % len(bases)], transform(i, 0.0))
+                   for i in range(N)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mgr.sync()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        scene = rt.bake_instanced(mgr, cluster_size=128)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return mgr, handles, scene, [(t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                                     (t3 - t2) * 1e3]
+
+    _, _, _, cold = build()
+    mgr, handles, scene, warm = build()
+    n_tris = sum(int(mgr._blas[r.blas_slot].n_prims) for r in mgr._instances)
+    fmt = lambda ms: "/".join(f"{x:.1f}" for x in ms)
+    say(phase, f"{N} instances ({n_tris} triangles in world space), "
+               f"{mgr.n_geometries} BLAS, {scene.n_clusters} cluster rows "
+               f"(at most {scene.max_clusters_per_blas} a BLAS), tri_feats "
+               f"{scene.tri_feats.numel() * 4 / 1e6:.1f} MB; build (pushes/"
+               f"sync/bake) cold {fmt(cold)} ms, warm {fmt(warm)} ms")
+
+    o, d = instanced_frame_rays(INSTANCED_SIDE, dev)
+    rays = rt.Ray.create(o, d)
+    R = o.shape[0]
+    zero_counts()
+    res = rt.closest_hit(scene, rays)
+    torch.cuda.synchronize()
+    launches = read_counts("instanced closest_hit",
+                           ["phase_a", "regroup_sweep"])
+    if (launches["phase_a"], launches["regroup_sweep"]) != (1, 1):
+        raise AssertionError(f"instanced closest_hit: launches {launches}, "
+                             f"expected K1 once and K2 once")
+    hit_frac = float(res.hit.float().mean())
+    n_hit_inst = int(torch.unique(res.instance_idx).numel()) - 1
+    if not 0.05 < hit_frac < 1.0 or n_hit_inst < N // 2:
+        raise AssertionError(f"instanced closest_hit: hit_frac {hit_frac}, "
+                             f"{n_hit_inst} instances hit")
+    if res.t.shape != (R,) or not bool(torch.isfinite(res.t).all()):
+        raise AssertionError("instanced t is not finite or has the wrong "
+                             "shape")
+
+    times = []
+    for f in range(INSTANCED_FRAMES):
+        for i, h in enumerate(handles):
+            mgr.update_transform(h, transform(i, INSTANCED_STEP * (f + 1)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scene = rt.refresh_instances(scene, mgr)
+        res = rt.closest_hit(scene, rays)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(times)
+    say(phase, f"closest_hit on {R} rays: hit_frac {hit_frac:.4f}, "
+               f"{n_hit_inst} distinct instances hit, launches {launches}; "
+               f"{INSTANCED_FRAMES} frames (refresh_instances + query): "
+               f"{' '.join(f'{x:.2f}' for x in times)} ms, median {med:.2f} "
+               f"ms ({R / med / 1e3:.3f} Mrays/s), spread "
+               f"{min(times):.2f}-{max(times):.2f} ms, on {torch.cuda.get_device_name(0)}")
+
+    # K1 and K2 on the last frame's operands.
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+        rays, 2048, 32)
+    SPB = 16
+    phase_a_check("K1 instanced", ops_dense, SimpleNamespace(
+        cluster_min=scene.inst_aabb_min, cluster_max=scene.inst_aabb_max),
+        (po, pd, ptmin, ptmax), TILE)
+    s1 = ops_inst._stage1_inst_core(scene, po, pd, ptmin, ptmax, TILE, G,
+                                    SPB)
+    C = scene.cluster_size
+    kw = dict(G=G, SPB=SPB, C=C, payload="pairrow")
+    pairs = (f"{s1.counts[0]} coarse (tile, instance), {s1.counts[1]} "
+             f"(subgroup, instance) and {s1.counts[2]} (pair, cluster) pairs")
+    k2 = grid_check(
+        "K2 instanced regroup_sweep (pairrow)",
+        lambda *a: ops_regroup.run_regrouped(*a, **kw),
+        lambda *a: ops_regroup.run_regrouped_plain(*a, **kw),
+        lambda *a, blocks: ops_regroup.run_regrouped_model(
+            *a, **kw, blocks=blocks),
+        scene, s1.block_cid, s1.block_subs, s1.tbl, G, SPB, C, phase, pairs)
+    say(phase, f"K1 bitwise equal to plain; {k2['desc']}")
+    k2_ms = cuda_ms(k2["run"], 10)
+    k2_plain_ms = cuda_ms(k2["run_plain"], 3)
+    # Where a frame's time goes: the refresh alone, stage 1 and stage 2
+    # (each median of 5, CUDA events).
+    refresh_ms = cuda_ms(lambda: rt.refresh_instances(scene, mgr), 5)
+    st1_ms = cuda_ms(lambda: ops_inst._stage1_inst_core(
+        scene, po, pd, ptmin, ptmax, TILE, G, SPB), 5)
+    st2_ms = cuda_ms(lambda: ops_inst._stage2_inst_core(
+        scene, s1, o, d, G, SPB, po.shape[0]), 5)
+    say(phase, f"K2 pairrow kernel {k2_ms:.3f} ms plain {k2_plain_ms:.3f} "
+               f"ms bound {k2['bound'][0]:.3f} ms ({k2['bound'][1]}); ray "
+               f"table {s1.tbl.numel() * 4 / 1e6:.1f} MB; refresh_instances "
+               f"{refresh_ms:.3f} ms, stage 1 {st1_ms:.3f} ms, stage 2 (K2, "
+               f"combine, decode, finalize) {st2_ms:.3f} ms")
+    del s1
+
+    # any_hit on the frame's rays: its hit mask is the closest hit's.
+    occ = rt.any_hit(scene, rays)
+    if not torch.equal(occ.hit, res.hit):
+        raise AssertionError(f"instanced any_hit: {int((occ.hit != res.hit).sum())}"
+                             f" hit-mask differences from closest_hit")
+
+    # A 4096-ray sample against the traversal and the oracle on the world
+    # soup (the last frame's transforms).
+    static = mgr.sync()
+    sample = torch.as_tensor(np.random.default_rng(SEED + phase).choice(
+        R, 4096, replace=False), device=dev)
+    srays = rt.Ray.create(o[sample], d[sample])
+    got = res.map(lambda a: a[sample])
+    trav = rt.closest_hit(static, srays)
+    # Each winner's row of the world soup, which holds every instance's
+    # real BLAS prims in turn (each BLAS in its Morton order): the engine
+    # names a row of its concatenated per-BLAS prims, the traversal a
+    # BLAS-local prim, the oracle the soup row itself.
+    soup, inst_of = rt.flatten_world_triangles(mgr)
+    n_real = torch.tensor([mgr._blas[r.blas_slot].n_prims
+                           for r in mgr._instances], device=dev)
+    per_blas = torch.zeros(scene.n_instances, dtype=torch.long, device=dev)
+    per_blas[scene.inst_blas.long()] = n_real
+    prim_base = torch.cumsum(per_blas, 0) - per_blas
+    soup_off = torch.cumsum(n_real, 0) - n_real
+
+    def soup_rows(res, local):
+        inst = res.instance_idx.long().clamp_min(0)
+        p = res.prim_idx.long()
+        if not local:
+            p = p - prim_base[scene.inst_blas[inst].long()]
+        return torch.where(res.hit, soup_off[inst] + p, -1)
+
+    got_rows = soup_rows(got, False)
+    n_both, n_tie, n_bad = instanced_check(
+        "instanced vs traversal", trav, got, soup_rows(trav, True), got_rows,
+        soup, o[sample], d[sample])
+    oracle = rt.closest_hit_brute(soup, srays)
+    o_both, o_tie, o_bad = instanced_check(
+        "instanced vs oracle", oracle, got,
+        torch.where(oracle.hit, oracle.prim_idx.long(), -1), got_rows, soup,
+        o[sample], d[sample])
+    say(phase, f"4096-ray sample: vs traversal {n_both} both hit, {n_tie} "
+               f"differing winners at a t tie, {n_bad} disagreements at an "
+               f"edge; vs brute oracle on {soup.vertices.shape[0]} world "
+               f"triangles {o_both} both hit, {o_tie} ties, {o_bad} "
+               f"disagreements at an edge; any_hit hit mask equal to "
+               f"closest_hit's")
+
+    # The traversal on a subset of the rays.
+    sub = slice(None, None, INSTANCED_TRAVERSAL_STRIDE)
+    trays = rt.Ray.create(o[sub].contiguous(), d[sub].contiguous())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tres = rt.closest_hit(static, trays)
+    torch.cuda.synchronize()
+    trav_ms = (time.perf_counter() - t) * 1e3
+    nt = trays.o.shape[0]
+    sres = res.map(lambda a: a[sub])
+    _, s_tie, s_bad = instanced_check(
+        "instanced vs traversal (subset)", tres, sres, soup_rows(tres, True),
+        soup_rows(sres, False), soup, trays.o, trays.d)
+    say(phase, f"traversal (rt.closest_hit on mgr.sync()) on {nt} rays: "
+               f"{trav_ms:.1f} ms ({nt / trav_ms / 1e3:.4f} Mrays/s); "
+               f"against the engine {s_tie} ties, {s_bad} disagreements at "
+               f"an edge")
+    return dict(launches=launches["regroup_sweep"], err=k2["err"], ms=k2_ms,
+                plain_ms=k2_plain_ms, bound=k2["bound"])
 
 
 def pinhole_rays(side, device, dist=3.0, half=0.5):

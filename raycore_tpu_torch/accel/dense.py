@@ -29,6 +29,8 @@ from .brute import HitResult
 from .types import PAD_COORD, f32_as_i32, i32_as_f32, next_pow2
 
 FEAT = 16
+# The smallest normal float32; smaller magnitudes are denormal.
+_FLT_MIN = 2.0 ** -126
 
 
 @dataclasses.dataclass
@@ -135,8 +137,12 @@ def gather_hit_payload(scene: DenseScene, idx, hit):
 def _featurize_tris(v0, v1, v2):
     """(T, FEAT, 4) per-triangle feature matrix; the quantity columns are
     [det, u*det, v*det, t*det]. Rows 10-15 stay zero. The products use the
-    reference's fused multiply-add chains (core/triangle.py), so the
-    one-time build gives the reference's tables."""
+    reference's fused multiply-add chains (core/triangle.py), and a
+    denormal result is flushed to a zero of its sign, as the reference's
+    float32 arithmetic flushes them (XLA on the CPU and the TPU), so the
+    one-time build gives the reference's tables. Near-degenerate
+    triangles and small coordinates give such entries (a cross product
+    below 2^-126, e.g. in a small local-space BLAS)."""
     e1 = v1 - v0
     e2 = v2 - v0
     n = cross(e1, e2)
@@ -149,7 +155,7 @@ def _featurize_tris(v0, v1, v2):
     psi[:, 3:6, 2] = -e1
     psi[:, 6:9, 3] = n                       # t*det = o . n - v0 . n
     psi[:, 9, 3] = -dot3(v0, n)
-    return psi
+    return torch.where(psi.abs() < _FLT_MIN, psi * 0.0, psi)
 
 
 def ray_features(o, d):

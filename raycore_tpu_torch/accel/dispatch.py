@@ -1,23 +1,34 @@
-"""Query entry points (counterpart of ``raycore_tpu/accel/dispatch.py``,
-partial: ``scene_closest_hit`` and ``scene_any_hit`` for ``DenseScene``).
+"""Query entry points (counterpart of ``raycore_tpu/accel/dispatch.py``):
+``scene_closest_hit`` and ``scene_any_hit`` route by scene form, as the
+JAX package does.
 
-Both route on batch size, as the JAX package does once its big-batch
-engines are warm. ``closest_hit``: a batch of at least
-``REGROUP_MIN_RAYS`` rays goes to the regrouped engine (tile 2048) on a
-scene with sub_chunks == 1 and to the packed sub-cluster engine
-(``closest_hit_packed``, tile 2048) on a scene with sub_chunks >= 2;
-every other batch goes to the tile worklist (tile 512 at the default
-``tile_size``). ``any_hit``: a batch of at least that many rays on a
-sub_chunks == 1 scene goes to the regrouped occlusion, every other batch
-to the worklist occlusion. The warmth and opt-in gates of the JAX rule
-guard against remote compiles and are not ported: ``has_warm_capacity``
-and ``prewarm`` keep the JAX package's names for its callers. The
-regrouped closest hit runs at ``BIG_BATCH_PASSES``. The
-results contract does not depend on the engine.
+- ``StaticTLAS``: the two-level traversal (``accel/traversal.py``), with
+  ``tile_size`` and ``**trav_kw`` (``stack_size``, ``max_iters``,
+  ``substeps``).
+- ``DenseInstancedScene``: the instanced engine
+  (``ops/instanced.py:closest_hit_instanced`` / ``any_hit_instanced``)
+  at any batch size; ``**trav_kw`` raises ``TypeError``.
+- ``DenseScene``: by batch size, as the JAX package does once its
+  big-batch engines are warm. ``closest_hit``: a batch of at least
+  ``REGROUP_MIN_RAYS`` rays goes to the regrouped engine (tile 2048) on a
+  scene with sub_chunks == 1 and to the packed sub-cluster engine
+  (``closest_hit_packed``, tile 2048) on a scene with sub_chunks >= 2;
+  every other batch goes to the tile worklist (tile 512 at the default
+  ``tile_size``). ``any_hit``: a batch of at least that many rays on a
+  sub_chunks == 1 scene goes to the regrouped occlusion, every other
+  batch to the worklist occlusion. The regrouped closest hit runs at
+  ``BIG_BATCH_PASSES``.
+
+The warmth and opt-in gates of the JAX rule guard against remote
+compiles and are not ported: ``has_warm_capacity`` and ``prewarm`` keep
+the JAX package's names for its callers. The results contract does not
+depend on the engine.
 """
 from __future__ import annotations
 
+from . import traversal as _trav
 from .dense import DenseScene
+from .types import StaticTLAS
 
 # Queries below this size do not amortize the regrouped engines' stage 1;
 # they stay on the tile worklist.
@@ -32,12 +43,8 @@ BIG_BATCH_PASSES = 1
 
 
 def _big_batch(scene, rays) -> bool:
-    """Whether a query is large enough for the regrouped engines."""
-    if not isinstance(scene, DenseScene):
-        raise NotImplementedError(
-            f"queries on {type(scene).__name__}: only DenseScene is ported "
-            f"(the BVH and instanced scenes are ROADMAP.md queue 1 items 3 "
-            f"and 4)")
+    """Whether a query on a DenseScene is large enough for the regrouped
+    engines."""
     n_rays = 1
     for s in rays.batch_shape:
         n_rays *= s
@@ -64,7 +71,11 @@ def scene_closest_hit(scene, rays, *, tile_size: int = 16384,
     ``(result, None)``: every query here syncs, so the result is valid
     and there is nothing to finalize. ``trav_kw`` (the BVH traversal's
     options) raises ``TypeError`` on a ``DenseScene``, as in the JAX
-    package."""
+    package. A ``StaticTLAS`` goes to the traversal and a
+    ``DenseInstancedScene`` to the instanced engine (module docstring)."""
+    routed = _other_forms(scene, rays, tile_size, trav_kw, any_hit=False)
+    if routed is not None:
+        return (routed, None) if deferred else routed
     big = _big_batch(scene, rays)
     if trav_kw:
         raise TypeError(f"dense-engine queries do not accept {trav_kw}")
@@ -88,6 +99,9 @@ def scene_any_hit(scene, rays, *, tile_size: int = 16384,
     forced to 0, and only hit, prim_idx and instance_idx are
     contractual. ``tile_size``, ``deferred`` and ``trav_kw`` as in
     ``scene_closest_hit``."""
+    routed = _other_forms(scene, rays, tile_size, trav_kw, any_hit=True)
+    if routed is not None:
+        return (routed, None) if deferred else routed
     big = _big_batch(scene, rays)
     if trav_kw:
         raise TypeError(f"dense-engine queries do not accept {trav_kw}")
@@ -99,6 +113,25 @@ def scene_any_hit(scene, rays, *, tile_size: int = 16384,
         res = any_hit_dense_pallas_auto(scene, rays,
                                         tile=_worklist_tile(tile_size))
     return (res, None) if deferred else res
+
+
+def _other_forms(scene, rays, tile_size: int, trav_kw: dict, any_hit: bool):
+    """The query on a StaticTLAS or a DenseInstancedScene, or None for a
+    DenseScene."""
+    from ..scene.instanced import DenseInstancedScene
+    if isinstance(scene, DenseInstancedScene):
+        if trav_kw:
+            raise TypeError(f"instanced queries do not accept {trav_kw}")
+        from ..ops import instanced
+        fn = (instanced.any_hit_instanced if any_hit
+              else instanced.closest_hit_instanced)
+        return fn(scene, rays)
+    if isinstance(scene, StaticTLAS):
+        fn = _trav.any_hit if any_hit else _trav.closest_hit
+        return fn(scene, rays, tile_size=tile_size, **trav_kw)
+    if not isinstance(scene, DenseScene):
+        raise TypeError(f"no query route for a {type(scene).__name__}")
+    return None
 
 
 def has_warm_capacity(scene, n_rays: int, **kw) -> bool:
@@ -117,7 +150,8 @@ def prewarm(scene, n_rays: int, **kw) -> None:
     Runs no query and returns None: the port has no capacities to size
     and no stage graphs to compile. ``n_rays`` and the JAX keywords
     (engine, tile, subgroup, spb, spb_sub, packs, passes) are taken and
-    ignored."""
-    if scene.tri_feats.device.type == "cuda":
+    ignored. A StaticTLAS (the traversal has no kernel) needs nothing."""
+    feats = getattr(scene, "tri_feats", None)
+    if feats is not None and feats.device.type == "cuda":
         from ..kernels import _build
         _build.library()

@@ -2,9 +2,11 @@
 NumPy arrays.
 
 The dict form of a scene is what ``np.asarray`` gives for each field of a
-``DenseScene`` from either package, so a scene built by one package can be
-queried by the other. Every function puts its tensors on ``device``, the
-CUDA card by default.
+``DenseScene``, ``BLAS``, ``StaticTLAS`` or ``DenseInstancedScene`` from
+either package (the fields of its ``prims`` and ``instances`` flattened
+into the same dict), so a scene built by one package can be queried by
+the other. Every function puts its tensors on ``device``, the CUDA card
+by default.
 """
 from __future__ import annotations
 
@@ -12,15 +14,23 @@ import numpy as np
 import torch
 
 from .accel.dense import DenseScene
+from .accel.types import BLAS, Instances, StaticTLAS
 from .core.bounds import Bounds2, Bounds3
 from .core.device import default_device
 from .core.ray import Ray
 from .core.transforms import Transformation
 from .core.triangle import Triangle
+from .scene.instanced import DenseInstancedScene
 
 _SCENE_ARRAYS = ("tri_feats", "cluster_min", "cluster_max", "sub_bounds",
                  "prims_hot", "root_aabb")
 _PRIM_FIELDS = ("vertices", "normals", "tangents", "uv", "metadata")
+_INSTANCE_FIELDS = ("transform", "inv_transform", "blas_index",
+                    "instance_id", "mask")
+_INSTANCED_ARRAYS = ("tri_feats", "cluster_min", "cluster_max", "prims_hot",
+                     "inst_inv", "inst_blas", "inst_cbase", "inst_ncl",
+                     "inst_aabb_min", "inst_aabb_max", "inst_local_min",
+                     "inst_local_max", "root_aabb")
 
 
 def _tensor(a, device, dtype=None):
@@ -81,3 +91,68 @@ def dense_scene_from_numpy(d: dict, device=None) -> DenseScene:
                       cluster_size=int(d["cluster_size"]),
                       sub_chunks=int(d["sub_chunks"]),
                       payload_mask=int(d["payload_mask"]), **arrays)
+
+
+def _prims(d: dict, device) -> Triangle:
+    return triangle_from_numpy(*(d[k] for k in _PRIM_FIELDS), device=device)
+
+
+def blas_from_numpy(d: dict, device=None) -> BLAS:
+    """BLAS from a dict of NumPy arrays: ``nodes`` (int32), ``root_aabb``,
+    the five prim fields and the ints ``n_prims`` and ``capacity``."""
+    device = default_device(device)
+    return BLAS(nodes=_tensor(np.asarray(d["nodes"], np.int32), device),
+                prims=_prims(d, device),
+                root_aabb=_tensor(np.asarray(d["root_aabb"], np.float32),
+                                  device),
+                n_prims=int(d["n_prims"]), capacity=int(d["capacity"]))
+
+
+def static_tlas_from_numpy(d: dict, device=None) -> StaticTLAS:
+    """StaticTLAS from a dict of NumPy arrays: ``unified_nodes``,
+    ``blas_nodes_offset``, ``blas_prims_offset`` (int32),
+    ``blas_root_aabb``, ``root_aabb``, the five prim fields, the five
+    instance fields (``transform``, ``inv_transform``, ``blas_index``,
+    ``instance_id``, ``mask``) and the ints ``n_instances``,
+    ``instance_capacity`` and ``n_blas``."""
+    device = default_device(device)
+    i32 = lambda k: _tensor(np.asarray(d[k], np.int32), device)
+    f32 = lambda k: _tensor(np.asarray(d[k], np.float32), device)
+    inst = Instances(transform=f32("transform"),
+                     inv_transform=f32("inv_transform"),
+                     blas_index=i32("blas_index"),
+                     instance_id=_tensor(np.asarray(d["instance_id"])
+                                         .astype(np.int64), device),
+                     mask=_tensor(np.asarray(d["mask"], bool), device))
+    return StaticTLAS(unified_nodes=i32("unified_nodes"), instances=inst,
+                      prims=_prims(d, device),
+                      blas_nodes_offset=i32("blas_nodes_offset"),
+                      blas_prims_offset=i32("blas_prims_offset"),
+                      blas_root_aabb=f32("blas_root_aabb"),
+                      root_aabb=f32("root_aabb"),
+                      n_instances=int(d["n_instances"]),
+                      instance_capacity=int(d["instance_capacity"]),
+                      n_blas=int(d["n_blas"]))
+
+
+def instanced_scene_from_numpy(d: dict, device=None) -> DenseInstancedScene:
+    """DenseInstancedScene from a dict of NumPy arrays: ``tri_feats``,
+    ``cluster_min``, ``cluster_max``, ``prims_hot``, ``inst_inv``,
+    ``inst_blas``, ``inst_cbase``, ``inst_ncl``, ``inst_aabb_min``,
+    ``inst_aabb_max``, ``inst_local_min``, ``inst_local_max``,
+    ``root_aabb``, the five prim fields and the ints ``n_instances``,
+    ``cluster_size``, ``max_clusters_per_blas`` and ``payload_mask``."""
+    device = default_device(device)
+    arrays = {}
+    for k in _INSTANCED_ARRAYS:
+        a = np.asarray(d[k])
+        a = a.astype(np.int32) if a.dtype.kind in "iu" else a.astype(
+            np.float32)
+        arrays[k] = _tensor(a, device)
+    return DenseInstancedScene(
+        prims=_prims(d, device),
+        inst_blas_host=np.asarray(d["inst_blas"], np.int32),
+        n_instances=int(d["n_instances"]),
+        cluster_size=int(d["cluster_size"]),
+        max_clusters_per_blas=int(d["max_clusters_per_blas"]),
+        payload_mask=int(d["payload_mask"]), **arrays)

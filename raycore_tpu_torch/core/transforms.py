@@ -21,11 +21,23 @@ import torch
 from . import bounds as _bounds
 from .device import as_f32, default_device
 from .ray import Ray, RayDifferentials
+from .triangle import cross as _fused_cross
+from .triangle import dot3 as _fused_dot3
 
 
 def _apply_mat3(R, p):
     """R @ p over the last axes as an elementwise multiply and sum."""
     return (R * p[..., None, :]).sum(dim=-1)
+
+
+def _apply_mat3_fused(R, p):
+    """R @ p over the last axes, each row's dot as the fused chain
+    fma(r2, p2, fma(r1, p1, r0*p0)) (``core/triangle.py:dot3``): what the
+    JAX package's compiled programs compute for ``_apply_mat3``, whose
+    products its compiler fuses into the sum. The instance tables
+    (``accel/tlas_build.py``, ``scene/instanced.py``) and the instanced
+    engine's local rays use it, so they equal the reference's bits."""
+    return _fused_dot3(R, p[..., None, :])
 
 
 def _matmul(a, b):
@@ -337,17 +349,25 @@ def mat3x4_identity(batch_shape=(), device=None):
     return _eye(3, batch_shape, default_device(device), 4)
 
 
-def mat3x4_inverse(m):
+def mat3x4_inverse(m, fused: bool = False):
     """The affine inverse of a row-major 3x4, [B | -B t] with B the
-    adjugate inverse of its 3x3."""
+    adjugate inverse of its 3x3. The cross products are fused
+    multiply-add pairs (``core/triangle.py:cross``), as the JAX package's
+    ``jnp.cross`` computes them. The determinant and B t are plain
+    float32 sums, as in the JAX package's eager calls, or with
+    ``fused=True`` fused chains, as in its compiled ones (the TLAS
+    manager's ``sync``, ``refresh_instances``)."""
     m = as_f32(m)
     R, t = m[..., :3, :3], m[..., :3, 3]
-    c0 = torch.linalg.cross(R[..., :, 1], R[..., :, 2])
-    c1 = torch.linalg.cross(R[..., :, 2], R[..., :, 0])
-    c2 = torch.linalg.cross(R[..., :, 0], R[..., :, 1])
-    det = (R[..., :, 0] * c0).sum(dim=-1)
-    B = torch.stack([c0, c1, c2], dim=-2) / det[..., None, None]
-    return torch.cat([B, -_apply_mat3(B, t)[..., :, None]], dim=-1)
+    col = lambda k: R[..., :, k]
+    # Rows: col1 x col2, col2 x col0, col0 x col1, in one call.
+    C = _fused_cross(torch.stack([col(1), col(2), col(0)], dim=-2),
+                     torch.stack([col(2), col(0), col(1)], dim=-2))
+    det = (_fused_dot3(col(0), C[..., 0, :]) if fused
+           else (col(0) * C[..., 0, :]).sum(dim=-1))
+    B = C / det[..., None, None]
+    apply = _apply_mat3_fused if fused else _apply_mat3
+    return torch.cat([B, -apply(B, t)[..., :, None]], dim=-1)
 
 
 def transform_point_3x4(m, p):

@@ -10,8 +10,11 @@
 // ray against each of the cluster's C triangles, accept a hit with
 // barycentric slack [edge_lo, edge_hi] and t in [t_min, t_max], and keep per
 // row the smallest int32 bit pattern of max(t, 0) with the smallest lane on
-// ties. Row r of block b writes key (INT32_MAX on a miss) and cid*C + lane
-// (-1 on a miss). A block with cid < 0 writes the miss sentinels.
+// ties. Row r of block b writes key (INT32_MAX on a miss) and a payload
+// (-1 on a miss): cid*C + lane in the prim mode, (b*SPB + r/G)*C + lane in
+// the pairrow mode, the (block row, lane) pair the instanced engine decodes
+// (ops/instanced.py), since one triangle can be hit through several
+// instances. A block with cid < 0 writes the miss sentinels.
 //
 // What bounds it on this card: arithmetic. Each (ray, triangle) test needs
 // 19 fused multiply-adds (the nonzero terms of four dots) and, where it may
@@ -42,8 +45,8 @@ __global__ void regroup_sweep_kernel(const int* __restrict__ block_subs,
                                      const float* __restrict__ feats,
                                      int* __restrict__ key_out,
                                      int* __restrict__ pair_out, int G,
-                                     int SPB, int C, float edge_lo,
-                                     float edge_hi) {
+                                     int SPB, int C, int pairrow,
+                                     float edge_lo, float edge_hi) {
   extern __shared__ float4 table4[];   // SPARSE_TERMS float4s a lane group
   const int b = blockIdx.x;
   const int r = threadIdx.x;
@@ -63,7 +66,9 @@ __global__ void regroup_sweep_kernel(const int* __restrict__ block_subs,
   int lane = C;
   sweep_lanes(table4, C / 4, 0, row, edge_lo, edge_hi, best, lane);
   key_out[out] = best;
-  pair_out[out] = (best == INT_MAX) ? -1 : cid * C + lane;
+  // The host checks that n_blocks*SPB*C fits int32 in the pairrow mode.
+  const int base = pairrow ? (b * SPB + r / G) * C : cid * C;
+  pair_out[out] = (best == INT_MAX) ? -1 : base + lane;
 }
 
 }  // namespace
@@ -72,13 +77,15 @@ extern "C" {
 
 // block_subs (n_blocks, SPB) int32; block_cid (n_blocks,) int32; tbl
 // (n_sub + 1, G, 16) float32; feats (K, 16, 4C) float32; key_out and
-// pair_out (n_blocks * SPB * G,) int32. Needs SPB*G <= 1024 threads,
+// pair_out (n_blocks * SPB * G,) int32; pairrow != 0 selects the pairrow
+// payload (n_blocks * SPB * C < 2^31). Needs SPB*G <= 1024 threads,
 // C % 4 == 0, 16-byte aligned tbl and feats, and the slack quick_reject
 // assumes (REJECT_EDGE_LO, REJECT_EDGE_HI). Returns cudaGetLastError().
 int raycore_regroup_sweep(const void* block_subs, const void* block_cid,
                           const void* tbl, const void* feats, void* key_out,
                           void* pair_out, int n_blocks, int G, int SPB, int C,
-                          float edge_lo, float edge_hi, void* stream) {
+                          int pairrow, float edge_lo, float edge_hi,
+                          void* stream) {
   if (edge_lo < REJECT_EDGE_LO || edge_hi > REJECT_EDGE_HI)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * SPARSE_TERMS * (size_t)C;
@@ -93,7 +100,7 @@ int raycore_regroup_sweep(const void* block_subs, const void* block_cid,
       static_cast<const int*>(block_subs), static_cast<const int*>(block_cid),
       static_cast<const float*>(tbl), static_cast<const float*>(feats),
       static_cast<int*>(key_out), static_cast<int*>(pair_out), G, SPB, C,
-      edge_lo, edge_hi);
+      pairrow, edge_lo, edge_hi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,8 +40,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "raycore_phase_a": (_P, _P, _P, _I, _I, _F, _P),
     "raycore_empty_launch": (_I, _I, _I, _P),
-    "raycore_regroup_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                              _F, _P),
+    "raycore_regroup_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _F, _P),
     "raycore_worklist_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _F, _F, _P),
     "raycore_occlusion_sweep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -117,23 +117,66 @@ def pack_presorted_cluster_major(cid_s, sub_s, *, SPB: int, n_sub: int):
     return block_cid, block_subs
 
 
+def group_flat_cluster_major(sub, cid, valid, *, SPB: int, n_sub: int):
+    """Pack flat (subgroup, cluster) candidates into cluster-major blocks
+    of SPB subgroups: the valid candidates in the order of a stable sort
+    of ``where(valid, cid, K)`` (K the cluster count, so the invalid sort
+    last), cut by ``pack_presorted_cluster_major``. They are compacted
+    before the sort (one host sync for their count), which gives that
+    order on a shorter sort, so the JAX signature's K is not needed.
+    Returns (block_cid (B,), block_subs (B, SPB)) with B the exact block
+    count; slots past a cluster's last subgroup point at ``n_sub``.
+
+    The JAX package sorts unstably (``is_stable=False``), so its order of
+    blocks within a cluster is not defined. In the prim payload that
+    order changes nothing. In the pairrow payload it decides which of two
+    exactly tied (instance, prim) winners has the smaller pair id, and so
+    which the grouped combine keeps."""
+    keep = compact_indices(valid)
+    cid_v, sub_v = cid[keep], sub[keep]
+    order = torch.sort(cid_v, stable=True).indices
+    return pack_presorted_cluster_major(cid_v[order], sub_v[order], SPB=SPB,
+                                        n_sub=n_sub)
+
+
+# The payloads of the regroup sweep K2: "prim" writes cid*C + lane,
+# "pairrow" (b*SPB + row//G)*C + lane with b the block's index in the grid.
+SWEEP_PAYLOADS = ("prim", "pairrow")
+
+
+def check_sweep_payload(payload: str, n_blocks: int, SPB: int, C: int):
+    """Raise ValueError for an unknown payload, or in the pairrow mode
+    when the largest payload, n_blocks*SPB*C - 1, does not fit int32 (the
+    JAX package has the same limit and does not check it)."""
+    if payload not in SWEEP_PAYLOADS:
+        raise ValueError(f"payload must be one of {SWEEP_PAYLOADS}, got "
+                         f"{payload!r}")
+    if payload == "pairrow" and n_blocks * SPB * C > 1 << 31:
+        raise ValueError(
+            f"pairrow payload out of int32 range: {n_blocks} blocks x SPB "
+            f"{SPB} x C {C} = {n_blocks * SPB * C} pair ids > 2^31")
+
+
 def run_regrouped_plain(block_subs, block_cid, tbl, feats, *, G: int,
-                        SPB: int, C: int):
+                        SPB: int, C: int, payload: str = "prim"):
     """Sweep every block with a gathered ``torch.bmm`` (full float32: run
     with TF32 off). Returns (key, pair) of shape (n_blocks*SPB*G,) in
     block-row order: key is the int32 bits of max(t, 0) of the row's
     closest accepted triangle (INT32_MAX on a miss), pair is cid*C + lane
+    ("prim") or (b*SPB + row//G)*C + lane ("pairrow", b the block's index)
     with the smallest lane on ties (-1 on a miss). Blocks with cid < 0
     write the miss sentinels. Blocks go through in chunks of at most
     PLAIN_CHUNK_ELEMS product elements. The packed sweep at one sub-chunk
     per cluster."""
+    check_sweep_payload(payload, block_cid.shape[0], SPB, C)
     return run_packed_plain(block_subs, block_cid, tbl, feats, G=G,
-                            SPB_sub=SPB, C_eff=C, SUBC=1)
+                            SPB_sub=SPB, C_eff=C, SUBC=1, payload=payload)
 
 
 def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
                      SPB_sub: int, C_eff: int, SUBC: int,
-                     hits=_featurized_hits):
+                     hits=_featurized_hits, payload: str = "prim",
+                     block_ids=None):
     """The packed sub-cluster sweep in plain PyTorch: block b's SPB_sub*G
     rows against the C_eff triangles of sub-cluster q = block_cid[b] =
     cluster*SUBC + s, which are columns [s*4*C_eff, (s+1)*4*C_eff) of
@@ -141,7 +184,10 @@ def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
     as ``run_regrouped_plain`` does, with pair q*C_eff + lane (the
     triangle's slot cluster*C + s*C_eff + lane); blocks with q < 0 write
     the miss sentinels. ``hits`` is the featurized test (``torch.bmm`` by
-    default), given each row's t_min and t_max."""
+    default), given each row's t_min and t_max. payload="pairrow" (K2's
+    mode, SUBC = 1) writes (b*SPB_sub + row//G)*C_eff + lane instead, with
+    b the block's index in the grid: ``block_ids`` (int64, one a block)
+    when the blocks are a subset of a grid, else their position."""
     ROWS = G * SPB_sub
     n_blocks = block_cid.shape[0]
     dev = tbl.device
@@ -152,6 +198,9 @@ def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
     step = max(1, PLAIN_CHUNK_ELEMS // (ROWS * 4 * C_eff))
     lanes = torch.arange(C_eff, dtype=torch.int32, device=dev)
     imax = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
+    if block_ids is None:
+        block_ids = torch.arange(n_blocks, dtype=torch.int64, device=dev)
+    slot = torch.arange(ROWS, dtype=torch.int64, device=dev) // G
     for lo in range(0, n_blocks, step):
         cid = block_cid[lo:lo + step]
         n = cid.shape[0]
@@ -169,8 +218,12 @@ def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
         lane = torch.where(kb == key_min, lanes, C_eff).amin(dim=2)
         key_min = key_min[:, :, 0]
         valid = (cid >= 0)[:, None]
+        if payload == "pairrow":
+            base = (block_ids[lo:lo + n, None] * SPB_sub + slot) * C_eff
+        else:
+            base = cid[:, None] * C_eff
         pair = torch.where(key_min == INT32_MAX, -1,
-                           cid[:, None] * C_eff + lane)
+                           (base + lane).to(torch.int32))
         keys[lo * ROWS:(lo + n) * ROWS] = \
             torch.where(valid, key_min, imax).reshape(-1)
         pairs[lo * ROWS:(lo + n) * ROWS] = \
@@ -179,24 +232,30 @@ def run_packed_plain(block_subs, block_cid, tbl, feats, *, G: int,
 
 
 def run_packed_model(block_subs, block_cid, tbl, feats, *, G: int,
-                     SPB_sub: int, C_eff: int, SUBC: int, blocks=None):
+                     SPB_sub: int, C_eff: int, SUBC: int, blocks=None,
+                     payload: str = "prim"):
     """``run_packed_plain`` through ``kernel_order_hits``: K5's bits (and
     K2's at SUBC = 1), on the blocks ``blocks`` (int64 ids, all of them
     when None). Returns (key, pair) of those blocks' rows
-    (``tile_rows(blocks, SPB_sub*G)``)."""
+    (``tile_rows(blocks, SPB_sub*G)``); a pairrow payload names each block
+    by its index in the whole grid."""
+    ids = blocks
     if blocks is not None:
         block_subs, block_cid = block_subs[blocks], block_cid[blocks]
     return run_packed_plain(block_subs, block_cid, tbl, feats, G=G,
                             SPB_sub=SPB_sub, C_eff=C_eff, SUBC=SUBC,
-                            hits=kernel_order_hits)
+                            hits=kernel_order_hits, payload=payload,
+                            block_ids=ids)
 
 
 def run_regrouped_model(block_subs, block_cid, tbl, feats, *, G: int,
-                        SPB: int, C: int, blocks=None):
+                        SPB: int, C: int, blocks=None, payload: str = "prim"):
     """``run_regrouped_plain`` through ``kernel_order_hits``: K2's bits,
     on the blocks ``blocks`` (all of them when None)."""
+    check_sweep_payload(payload, block_cid.shape[0], SPB, C)
     return run_packed_model(block_subs, block_cid, tbl, feats, G=G,
-                            SPB_sub=SPB, C_eff=C, SUBC=1, blocks=blocks)
+                            SPB_sub=SPB, C_eff=C, SUBC=1, blocks=blocks,
+                            payload=payload)
 
 
 def _sweep_outputs(what, block_subs, block_cid, tbl, feats, *, G: int,
@@ -228,17 +287,19 @@ def _sweep_outputs(what, block_subs, block_cid, tbl, feats, *, G: int,
 
 
 def run_regrouped(block_subs, block_cid, tbl, feats, *, G: int, SPB: int,
-                  C: int):
+                  C: int, payload: str = "prim"):
     """Kernel K2 (``csrc/regroup_sweep.cu``): ``run_regrouped_plain`` on
     the card, the test evaluated as ``run_regrouped_model`` does (bit for
     bit) instead of as a matrix product. CPU tensors take
     ``run_regrouped_plain``; CUDA tensors launch the kernel or raise. Ids
     are not range-checked on the card: ``block_subs`` must index rows of
     ``tbl`` and ``block_cid`` must be below K (stage 1 produces them
-    so)."""
+    so). ``payload`` as in ``run_regrouped_plain``; a pairrow grid whose
+    pair ids would pass int32 raises ValueError on either device."""
+    check_sweep_payload(payload, block_cid.shape[0], SPB, C)
     if tbl.device.type == "cpu":
         return run_regrouped_plain(block_subs, block_cid, tbl, feats, G=G,
-                                   SPB=SPB, C=C)
+                                   SPB=SPB, C=C, payload=payload)
     keys, pairs = _sweep_outputs("regroup sweep", block_subs, block_cid, tbl,
                                  feats, G=G, SPB=SPB, PACKS=1, C_eff=C,
                                  SUBC=1)
@@ -250,7 +311,8 @@ def run_regrouped(block_subs, block_cid, tbl, feats, *, G: int, SPB: int,
         err = lib.raycore_regroup_sweep(
             block_subs.data_ptr(), block_cid.data_ptr(), tbl.data_ptr(),
             feats.data_ptr(), keys.data_ptr(), pairs.data_ptr(), n_blocks,
-            G, SPB, C, -EDGE_EPS, 1.0 + EDGE_EPS, _build.stream_ptr(tbl))
+            G, SPB, C, int(payload == "pairrow"), -EDGE_EPS, 1.0 + EDGE_EPS,
+            _build.stream_ptr(tbl))
     _build.check(err, "regroup_sweep")
     run_regrouped.launches += 1
     return keys, pairs

@@ -470,6 +470,132 @@ def test_regroup_sweep_kernel_matches_model(cuda, mesh, C, G, SPB):
     assert torch.equal(k5, kk) and torch.equal(p5, pk)
 
 
+def _instanced_scene(device, n_inst=12, C=32, seed=1234):
+    """tests/test_instanced_engine.py's scene: spheres and boxes under
+    random scaled rotations about z, baked at cluster size C."""
+    rng = np.random.default_rng(seed)
+    tlas = rt.TLAS(device=device)
+    sph = rt.sphere_mesh(radius=1.0, n_theta=8, n_phi=16, device=device)
+    box = rt.box_mesh(device=device)
+    for i in range(n_inst):
+        s, th = rng.uniform(0.4, 1.2), rng.uniform(0, 2 * np.pi)
+        m = np.zeros((3, 4), np.float32)
+        m[:, :3] = np.array([[np.cos(th), -np.sin(th), 0],
+                             [np.sin(th), np.cos(th), 0], [0, 0, 1]]) * s
+        m[:, 3] = rng.uniform(-3, 3, 3)
+        tlas.push(sph if i == 0 or i % 2 else box, m)
+    return tlas, rt.bake_instanced(tlas, cluster_size=C)
+
+
+def _instanced_rays(n, seed, device):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-4.5, 4.5, (n, 3)).astype(np.float32)
+    o[:, 2] = -6.0
+    d = rng.uniform(-3, 3, (n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return rt.Ray.create(torch.as_tensor(o, device=device),
+                         torch.as_tensor(d.astype(np.float32), device=device))
+
+
+def _instanced_stage1(scene, rays, tile=256, G=8, SPB=16):
+    from raycore_tpu_torch.ops import instanced as ops_inst
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+        rays, tile, G)
+    return ops_inst._stage1_inst_core(scene, po, pd, ptmin, ptmax, TILE, G,
+                                      SPB), G
+
+
+@pytest.mark.parametrize("C", [32, 128])
+def test_regroup_sweep_pairrow_kernel_matches_model(cuda, C):
+    """K2 in its pairrow mode on an instanced query's blocks plus padding
+    blocks, on the adversarial ray table: bit for bit against
+    run_regrouped_model(payload="pairrow"); against the plain version
+    within rtol 2e-6 with equal pair ids where the keys are equal; its
+    keys are the prim mode's, and both modes name the same lane."""
+    _, scene = _instanced_scene(cuda, C=C)
+    s1, G = _instanced_stage1(scene, _instanced_rays(2048, 5, cuda))
+    SPB = 16
+    block_cid = torch.cat([s1.block_cid, torch.full(
+        (3,), -1, dtype=torch.int32, device=cuda)])
+    block_subs = torch.cat([s1.block_subs, s1.block_subs[:3]])
+    for tbl in (s1.tbl, _adversarial_table(s1.tbl)):
+        args = (block_subs, block_cid, tbl, scene.tri_feats)
+        kw = dict(G=G, SPB=SPB, C=C)
+        before = ops_regroup.run_regrouped.launches
+        kk, pk = ops_regroup.run_regrouped(*args, **kw, payload="pairrow")
+        assert ops_regroup.run_regrouped.launches == before + 1
+        km, pm = ops_regroup.run_regrouped_model(*args, **kw,
+                                                 payload="pairrow")
+        assert torch.equal(kk, km) and torch.equal(pk, pm)
+        hit = pk >= 0
+        assert int(hit.sum()) > 0
+        rows = torch.arange(pk.numel(), device=cuda)
+        assert torch.equal((pk[hit] // C), rows[hit] // G)
+        kp, pp = ops_regroup.run_regrouped(*args, **kw)
+        assert torch.equal(kp, kk)
+        assert torch.equal(pp[hit] % C, pk[hit] % C)
+    kq, pq = ops_regroup.run_regrouped_plain(block_subs, block_cid, s1.tbl,
+                                             scene.tri_feats, G=G, SPB=SPB,
+                                             C=C, payload="pairrow")
+    kk, pk = ops_regroup.run_regrouped(block_subs, block_cid, s1.tbl,
+                                       scene.tri_feats, G=G, SPB=SPB, C=C,
+                                       payload="pairrow")
+    hk, hq = kk != INT32_MAX, kq != INT32_MAX
+    assert torch.equal(hk, hq)
+    torch.testing.assert_close(kk[hk].view(torch.float32),
+                               kq[hk].view(torch.float32), rtol=2e-6, atol=0)
+    same = kk == kq
+    assert torch.equal(pk[same], pq[same])
+
+
+def test_regroup_sweep_pairrow_range_is_checked(cuda):
+    """A pairrow grid whose largest id, n_blocks*SPB*C - 1, passes int32
+    raises ValueError before anything is allocated or launched."""
+    SPB, C, G = 16, 2048, 8
+    nb = (1 << 31) // (SPB * C) + 1
+    subs = torch.zeros((nb, SPB), dtype=torch.int32, device=cuda)
+    cid = torch.zeros((nb,), dtype=torch.int32, device=cuda)
+    tbl = torch.zeros((2, G, 16), device=cuda)
+    feats = torch.zeros((1, 16, 4 * C), device=cuda)
+    before = ops_regroup.run_regrouped.launches
+    with pytest.raises(ValueError, match="int32"):
+        ops_regroup.run_regrouped(subs, cid, tbl, feats, G=G, SPB=SPB, C=C,
+                                  payload="pairrow")
+    assert ops_regroup.run_regrouped.launches == before
+
+
+def test_instanced_query_on_card_matches_cpu_and_traversal(cuda):
+    """closest_hit on a DenseInstancedScene launches K1 once and K2 once
+    and meets the engine contract against the same query on the CPU
+    (the plain versions) and the traversal on the card."""
+    tlas_c, scene_c = _instanced_scene("cpu")
+    tlas, scene = _instanced_scene(cuda)
+    ref = rt.closest_hit(scene_c, _instanced_rays(2048, 5, "cpu"))
+    rays = _instanced_rays(2048, 5, cuda)
+    counts = (ops_dense.phase_a.launches, ops_regroup.run_regrouped.launches)
+    got = rt.closest_hit(scene, rays)
+    assert ops_dense.phase_a.launches == counts[0] + 1
+    assert ops_regroup.run_regrouped.launches == counts[1] + 1
+    assert got.t.device.type == "cuda"
+    trav = rt.closest_hit(tlas.sync(), rays)
+    trav_c = rt.closest_hit(tlas_c.sync(), _instanced_rays(2048, 5, "cpu"))
+    assert torch.equal(trav.hit.cpu(), trav_c.hit)
+    torch.testing.assert_close(trav.t.cpu()[trav_c.hit], trav_c.t[trav_c.hit],
+                               rtol=2e-5, atol=2e-6)
+    h = ref.hit
+    assert torch.equal(h, got.hit.cpu()) and int(h.sum()) > 50
+    torch.testing.assert_close(got.t.cpu()[h], ref.t[h], rtol=2e-5,
+                               atol=2e-6)
+    differ = (got.prim_idx.cpu()[h] != ref.prim_idx[h]) \
+        | (got.instance_idx.cpu()[h] != ref.instance_idx[h])
+    if differ.any():
+        rt_, gt = ref.t[h][differ], got.t.cpu()[h][differ]
+        assert float(((gt - rt_).abs() / rt_.clamp_min(1e-6)).max()) < 2e-6
+    torch.testing.assert_close(got.t.cpu()[h], trav.t.cpu()[h], rtol=2e-4,
+                               atol=2e-4)
+    assert torch.equal(rt.any_hit(scene, rays).hit, got.hit)
+
+
 @pytest.mark.parametrize("SUB,spb_sub,packs,lane_chunk", [
     (4, 2, 8, 64), (1, 2, 8, 64), (1, 2, 8, 256), (4, 4, 4, 64)])
 def test_packed_sweep_kernel_matches_model(cuda, SUB, spb_sub, packs,

@@ -250,9 +250,9 @@ def test_unported_options_raise():
                           cluster_size=32, sub_chunks=4)
     with pytest.raises(ValueError):
         t_pr.closest_hit_regrouped(sub4, tr)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 items 3 and 4"):
+    # Dispatch routes DenseScene, StaticTLAS and DenseInstancedScene
+    # (tests/test_torch_instanced.py); any other object is refused.
+    with pytest.raises(TypeError, match="no query route"):
         rt.closest_hit(object(), tr)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 items 3 and 4"):
+    with pytest.raises(TypeError, match="no query route"):
         rt.any_hit(object(), tr)

@@ -12,6 +12,9 @@ import torch
 
 import raycore_tpu as rc
 import raycore_tpu_torch as rt
+from raycore_tpu.scene import mesh as _j_mesh
+from raycore_tpu.scene.tlas import TLAS as _JTLAS
+from raycore_tpu_torch.scene import mesh as _t_mesh
 from test_pallas_regroup import _check as check_hits  # noqa: F401
 
 CPU = torch.device("cpu")   # the port's entry points default to the card
@@ -65,6 +68,48 @@ def jax_scene_arrays(scene) -> dict:
                 ("vertices", "normals", "tangents", "uv", "metadata")})
     out.update(n_prims=scene.n_prims, cluster_size=scene.cluster_size,
                sub_chunks=scene.sub_chunks, payload_mask=scene.payload_mask)
+    return out
+
+
+def _prim_arrays(prims) -> dict:
+    return {k: np.asarray(getattr(prims, k)) for k in
+            ("vertices", "normals", "tangents", "uv", "metadata")}
+
+
+def jax_blas_arrays(blas) -> dict:
+    """A JAX BLAS as the dict ``convert.blas_from_numpy`` takes."""
+    return dict(nodes=np.asarray(blas.nodes),
+                root_aabb=np.asarray(blas.root_aabb),
+                n_prims=blas.n_prims, capacity=blas.capacity,
+                **_prim_arrays(blas.prims))
+
+
+def jax_static_tlas_arrays(tlas) -> dict:
+    """A JAX StaticTLAS as the dict ``convert.static_tlas_from_numpy``
+    takes."""
+    out = {k: np.asarray(getattr(tlas, k)) for k in
+           ("unified_nodes", "blas_nodes_offset", "blas_prims_offset",
+            "blas_root_aabb", "root_aabb")}
+    out.update({k: np.asarray(getattr(tlas.instances, k)) for k in
+                ("transform", "inv_transform", "blas_index", "instance_id",
+                 "mask")})
+    out.update(_prim_arrays(tlas.prims), n_instances=tlas.n_instances,
+               instance_capacity=tlas.instance_capacity, n_blas=tlas.n_blas)
+    return out
+
+
+def jax_instanced_arrays(scene) -> dict:
+    """A JAX DenseInstancedScene as the dict
+    ``convert.instanced_scene_from_numpy`` takes."""
+    out = {k: np.asarray(getattr(scene, k)) for k in
+           ("tri_feats", "cluster_min", "cluster_max", "prims_hot",
+            "inst_inv", "inst_blas", "inst_cbase", "inst_ncl",
+            "inst_aabb_min", "inst_aabb_max", "inst_local_min",
+            "inst_local_max", "root_aabb")}
+    out.update(_prim_arrays(scene.prims), n_instances=scene.n_instances,
+               cluster_size=scene.cluster_size,
+               max_clusters_per_blas=scene.max_clusters_per_blas,
+               payload_mask=scene.payload_mask)
     return out
 
 
@@ -172,3 +217,101 @@ def spy(monkeypatch, module, name, calls):
         calls.append((name, kw))
         return fn(*a, **kw)
     monkeypatch.setattr(module, name, wrapped)
+
+
+# --- the TLAS manager and instanced scenes on both packages ------------
+
+
+def sphere_of(pkg, radius=1.0, nt=8, nphi=16):
+    kw = {} if pkg is _j_mesh else {"device": CPU}
+    return pkg.sphere_mesh(radius=radius, n_theta=nt, n_phi=nphi, **kw)
+
+
+def box_of(pkg, **kw):
+    return pkg.box_mesh(**kw) if pkg is _j_mesh else pkg.box_mesh(
+        **kw, device=CPU)
+
+
+def translation(x, y=0.0, z=0.0):
+    m = np.eye(3, 4, dtype=np.float32)
+    m[:, 3] = (x, y, z)
+    return m
+
+
+def random_transform(rng, scale_lo=0.4, scale_hi=1.2, span=3.0):
+    """tests/test_instanced_engine.py:_transform."""
+    s = rng.uniform(scale_lo, scale_hi)
+    th = rng.uniform(0, 2 * np.pi)
+    c, sn = np.cos(th), np.sin(th)
+    m = np.zeros((3, 4), np.float32)
+    m[:, :3] = np.array([[c, -sn, 0], [sn, c, 0], [0, 0, 1]], np.float32) * s
+    m[:, 3] = rng.uniform(-span, span, 3).astype(np.float32)
+    return m
+
+
+class Twin:
+    """The same mutations on a JAX manager and on the port's."""
+
+    def __init__(self):
+        self.j, self.t = _JTLAS(), rt.TLAS(device=CPU)
+
+    def push(self, mesh, *a, **kw):
+        hj = self.j.push(mesh(_j_mesh), *a, **kw)
+        ht = self.t.push(mesh(_t_mesh), *a, **kw)
+        assert hj.id == ht.id
+        return ht
+
+    def update(self, handle, mesh):
+        self.j.update(handle, mesh(_j_mesh))
+        self.t.update(handle, mesh(_t_mesh))
+
+    def __getattr__(self, name):
+        def both(*a, **kw):
+            getattr(self.j, name)(*a, **kw)
+            return getattr(self.t, name)(*a, **kw)
+        return both
+
+    def sync(self):
+        js, ts = self.j.sync(), self.t.sync()
+        assert_static_equal(js, ts)
+        return js, ts
+
+
+def assert_static_equal(js, ts):
+    for k in ("n_instances", "instance_capacity", "n_blas"):
+        assert getattr(js, k) == getattr(ts, k), k
+    for k in ("unified_nodes", "blas_nodes_offset", "blas_prims_offset"):
+        assert np.array_equal(np_(getattr(js, k)), np_(getattr(ts, k))), k
+    for k in ("blas_root_aabb", "root_aabb"):
+        assert np.array_equal(bits(getattr(js, k)), bits(getattr(ts, k))), k
+    for k in ("transform", "inv_transform"):
+        assert np.array_equal(bits(getattr(js.instances, k)),
+                              bits(getattr(ts.instances, k))), k
+    for k in ("blas_index", "instance_id", "mask"):
+        assert np.array_equal(np_(getattr(js.instances, k)).astype(np.int64),
+                              np_(getattr(ts.instances, k)).astype(np.int64)), k
+    for k in ("vertices", "normals", "tangents", "uv"):
+        assert np.array_equal(bits(getattr(js.prims, k)),
+                              bits(getattr(ts.prims, k))), k
+    assert np.array_equal(np_(js.prims.metadata).astype(np.int64),
+                          np_(ts.prims.metadata))
+
+
+def instanced_twin(n_inst=12, seed=1234):
+    """tests/test_instanced_engine.py:_scene on both packages."""
+    rng = np.random.default_rng(seed)
+    tw = Twin()
+    for i in range(n_inst):
+        mesh = sphere_of if i == 0 or i % 2 == 1 else box_of
+        tw.push(mesh, random_transform(rng))
+    return tw, rng
+
+
+def engine_rays(rng, n=2048, span=4.5):
+    """tests/test_instanced_engine.py:_rays as NumPy (o, d)."""
+    o = rng.uniform(-span, span, (n, 3)).astype(np.float32)
+    o[:, 2] = -6.0
+    tgt = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    d = (tgt - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
