@@ -93,16 +93,46 @@ count set to 0 just before it and read just after:
      (flatten_world_triangles) within 2e-4, every disagreement at a
      triangle's edge; any_hit's hit mask equal to the closest hit's; the
      traversal timed on 65,536 of the rays.
+ 21. the path-traced production frame (tools/tpu_pathtracer_bench.py at
+     its defaults, BASELINE config #5): the heightfield of phase 3 with
+     two materials, 1024^2 pixels, 4 bounces, through
+     render/pathtracer.py:trace_paths_staged, 8 queries of 1,048,576 rays
+     a frame (the regrouped engine: K1 and K2 once a query and no other
+     kernel); one warm-up frame, then frames seeded 0, 1 and 2 timed whole
+     (CUDA events, host syncs included): median, range, Mrays/s; a frame
+     with every query synced and timed (live rays, closest, shadow,
+     glue); seed 0 twice bitwise equal; the image finite, in [0, 1], mean
+     above 0.01; bounce 2's closest query, 4096 sampled live rays,
+     against the oracle (hit masks may differ only within 1e-4 of a
+     triangle edge) and its shadow query's occluders against the exact
+     test; K1 and K2 on the operands of each of the frame's 8 queries;
+     stage 1 against the whole query on bounce 0's closest and
+     shadow queries and bounce 2's closest query;
+     trace_paths_staged_batch with 2 and with 4 frames (2,097,152 and
+     4,194,304 rays a query), each frame within 1e-6 of its solo frame.
+ 22. the renderers and analyses on the card against their CPU twins,
+     both drawing from a CPU generator seeded alike: on the room
+     (render/scenes.py:example_scene) render_staged at 64x48,
+     trace_paths_staged at 32x24 with 3 bounces plain and textured,
+     render_step_mts, the simple.py kernels, hits_from_grid and
+     get_illumination on a 64^2 grid, view_factors on two facing quads,
+     collide_instances on particle_scene's 1,024 particles; a 256x192
+     2-bounce frame on displaced_grid_mesh(128) at C=128 (the tile
+     worklist: K1, K3 and K4, each held to its plain version and its
+     model on every query of the card's frame). Integer outputs equal;
+     every image under the image rule of render/parity.py.
 
-Every query path (phases 6, 8-14, 19 and 20) also holds the kernels it launched
+Every query path (phases 6, 8-14 and 19-22) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
 its phase-A inputs (and against its model), and its sweep kernel (K2-K6)
 on its own blocks or rays. Every kernel that a path does not name must not launch on it.
 Phases 8-11 also hold K3 and K4 bit for bit against their kernel-order
 model (ops/dense.py:kernel_order_hits) on SAMPLE_TILES sampled tiles with
 all their blocks, and phase 11 counts K4's tests per warp beside the
-tests its rays need. Phases 5 (the headline's blocks, which phase 6's
-query sweeps), 11 (the 1M shadow rays' blocks) and 12-13 hold K2 and K5
+tests its rays need; phase 22 holds K1, K3 and K4 so on the grid frame's
+queries. Phases 5 (the headline's blocks, which phase 6's
+query sweeps), 11 (the 1M shadow rays' blocks), 12-13 and 21 (every
+query of the path-traced frame) hold K2 and K5
 bit for bit against theirs (ops/regroup.py:run_regrouped_model,
 run_packed_model) on SAMPLE_BLOCKS sampled blocks plus the block with the
 most dummy slots; their bounds count only live rows (not the dummy
@@ -112,10 +142,13 @@ its slices staged whole against the launched 64-lane chunks.
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound (K2 three
 times: on the headline, on the blobby cell's multiwave path and on the
-256-instance frame in its pairrow mode); the line
+256-instance frame in its pairrow mode; K1 and K2 once more on the
+path-traced frame, with one frame's launches and the sums of their
+times and bounds over its 8 queries); the line
 before it the script's wall time; the last line is {"ok": true,
 "device": {...}}.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -229,6 +262,33 @@ INSTANCED_TRAVERSAL_STRIDE = 16
 INSTANCED_T_TOL = 2e-4
 INSTANCED_EDGE = 1e-4
 INSTANCED_EDGE_RATE = 1e-3
+# The path-traced production frame (phase 21):
+# tools/tpu_pathtracer_bench.py at its defaults (BASELINE config #5): the
+# heightfield displaced_grid_mesh(PT_MESH) with material (i // 64) % 2,
+# C=256, a PT_SIDE^2 frame of PT_BOUNCES bounces (8 queries of PT_SIDE^2
+# rays), timed over PT_SEEDS after one warm-up frame; PT_BATCHES frames
+# in one batch; the bounce (0-based) whose closest query is sampled
+# against the oracle, PT_ORACLE rays of it.
+PT_MESH = 707
+PT_SIDE = 1024
+PT_BOUNCES = 4
+PT_SEEDS = (0, 1, 2)
+PT_BATCHES = (2, 4)
+PT_ORACLE_BOUNCE = 2
+PT_ORACLE = 4096
+# Sampled bounce rays may differ from the oracle in hit mask only within
+# PT_EDGE (float64 barycentric margin) of a winner's edge (ROADMAP F1),
+# at most PT_EDGE_FLIPS in each direction.
+PT_EDGE = 1e-4
+PT_EDGE_FLIPS = 8
+# The consumers on the card against the CPU (phase 22): the room renders
+# at CONSUMER_SIDE (64 x 48), the path-traced room at 32 x 24 with 3
+# bounces, the grid frame on displaced_grid_mesh(CONSUMER_GRID[0]) at
+# C = CONSUMER_GRID[1] and CONSUMER_GRID[2] x CONSUMER_GRID[3] pixels.
+CONSUMER_SIDE = (64, 48)
+CONSUMER_PT = (32, 24, 3)
+CONSUMER_GRID = (128, 128, 256, 192)
+CONSUMER_PARTICLES = 1024
 # The card probes' sizes, the tools' defaults: P1's table rows and steps,
 # P2's TILE and blocks, P4's blocks.
 GATHER_SHAPE = (8192, 2048)
@@ -837,6 +897,14 @@ def main():
     k2i = instanced_phase(20, rt, ops_dense, ops_regroup, dev, read_counts,
                           zero_counts)
 
+    # 21. The path-traced production frame: K1 and K2 on every query.
+    frame = pathtracer_phase(21, rt, ops_dense, ops_regroup, dispatch, dev,
+                             read_counts, zero_counts)
+
+    # 22. The consumers on the card against their CPU twins.
+    consumers_phase(22, rt, ops_dense, dispatch, dev, read_counts,
+                    zero_counts)
+
     kernels = [
         {"name": "phase_a", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/phase_a.cu",
@@ -867,6 +935,18 @@ def main():
          "ms": k2i["ms"], "plain_ms": k2i["plain_ms"],
          "bound_ms": k2i["bound"][0], "bound_by": k2i["bound"][1],
          "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"raycore_tpu_torch/csrc/{name}.cu",
+         "replaces": replaces, "path": "path-traced frame, its 8 queries",
+         "launches": frame["launches"][name], "max_abs_err": k["err"],
+         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+         "bound_by": k["bound"][1], "library_ms": None}
+        for name, replaces, k in (
+            ("phase_a", "raycore_tpu/ops/pallas_dense.py:445", frame["k1"]),
+            ("regroup_sweep", "raycore_tpu/ops/pallas_regroup.py:191",
+             frame["k2"]))
+    ] + [
         {"name": "worklist_sweep", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/worklist_sweep.cu",
          "replaces": "raycore_tpu/ops/pallas_dense.py:116",
@@ -956,7 +1036,7 @@ def grid_check(what, kernel, plain, model, scene, block_cid, block_subs,
     block_cid, tbl, feats), ``model`` also ``blocks=``. Returns a dict:
     the kernel and its plain version on these blocks (``run``,
     ``run_plain``), the kernel's output and arguments, blocks, live rows,
-    error, bound and a description."""
+    error, bound (and its bytes and operations) and a description."""
     args = (block_subs, block_cid, tbl, scene.tri_feats)
     kk, pk = kernel(*args)
     kp, pp = plain(*args)
@@ -966,8 +1046,10 @@ def grid_check(what, kernel, plain, model, scene, block_cid, block_subs,
     n_sub = tbl.shape[0] - 1
     dummy = block_subs == n_sub
     live_rows = int(((block_cid >= 0)[:, None] & ~dummy).sum()) * G
-    b = bound(nbytes(block_subs, block_cid, tbl, kk, pk)
-              + table_bytes(block_cid, C_eff), live_rows * C_eff * TEST_FLOPS)
+    n_bytes = (nbytes(block_subs, block_cid, tbl, kk, pk)
+               + table_bytes(block_cid, C_eff))
+    flops = live_rows * C_eff * TEST_FLOPS
+    b = bound(n_bytes, flops)
     model_desc = block_model_check(what, (kk, pk), lambda blocks: model(
         *args, blocks=blocks), dummy, G * SPB, phase)
     desc = (f"{what}: {block_cid.shape[0]} blocks ({pairs}; dummy subgroup "
@@ -978,7 +1060,8 @@ def grid_check(what, kernel, plain, model, scene, block_cid, block_subs,
             f"t {rel:.3g}; {model_desc}")
     return dict(run=lambda: kernel(*args), run_plain=lambda: plain(*args),
                 out=(kk, pk), args=args, blocks=block_cid.shape[0],
-                live_rows=live_rows, err=err, bound=b, desc=desc)
+                live_rows=live_rows, err=err, bound=b, bytes=n_bytes,
+                flops=flops, desc=desc)
 
 
 def block_model_check(what, got, model, dummy, ROWS, phase):
@@ -1053,13 +1136,15 @@ def regroup_occlusion_check(ops_dense, ops_regroup, rt, scene, rays):
     return f"K1 bitwise equal to plain; {k2['desc']}"
 
 
-def worklist_sweep_phase(phase, ops_dense, scene, rays, plain_reps=3):
-    """K1 and K3 against their plain versions on a query's own operands,
-    K3 seeded from t_max; K3 bit for bit against its kernel-order model
-    on sampled tiles; K3's times and its bound from the (block, sub-chunk) tests the plain
-    version counts. Returns a dict of the numbers."""
+def worklist_sweep_phase(phase, ops_dense, scene, rays, plain_reps=3,
+                         tile=512, label=""):
+    """K1 and K3 against their plain versions on a query's own operands
+    (the query's ray tile ``tile``), K3 seeded from t_max; K3 bit for bit
+    against its kernel-order model on sampled tiles; K3's times and its
+    bound from the (block, sub-chunk) tests the plain version counts.
+    Returns a dict of the numbers."""
     o, d, t_min, t_max = ops_dense.flat_rays(rays)
-    TILE = ops_dense._tile_of(rays, 512)
+    TILE = ops_dense._tile_of(rays, tile)
     phase_a_check(f"K1 (phase {phase})", ops_dense, scene,
                   (o, d, t_min, t_max), TILE)
     tids, cids, phi, tmin, key0, _, _, _ = ops_dense._phase_a_and_worklist(
@@ -1091,8 +1176,8 @@ def worklist_sweep_phase(phase, ops_dense, scene, rays, plain_reps=3):
               + (n * SUB * TILE * SLAB_FLOPS if SUB > 1 else 0))
     skip = (f"; slab skip: {live} of {n * SUB} (block, sub-chunk) tests "
             f"live, {1 - live / (n * SUB):.4f} skipped" if SUB > 1 else "")
-    say(phase, f"K1 bitwise equal to plain; K3 worklist_sweep (TILE {TILE}, "
-               f"C {C}, SUB {SUB}): {n} blocks, {rows} rows, {plain_hits} "
+    say(phase, f"{label}K1 bitwise equal to plain; K3 worklist_sweep (TILE "
+               f"{TILE}, C {C}, SUB {SUB}): {n} blocks, {rows} rows, {plain_hits} "
                f"plain hits; hit-mask flips {flips}, pair differences "
                f"{pair_diff} (0 where the keys are equal), max rel t "
                f"{rel:.3g}{skip}; {model}; kernel {ms:.3f} ms plain "
@@ -1153,14 +1238,15 @@ def oracle_sample_phase(phase, rt, scene, o, d, res, diag, tie, rng):
                f"port (at most {DIAG_ORACLE_MISSES_MAX})")
 
 
-def occlusion_sweep_phase(ops_dense, scene, rays):
+def occlusion_sweep_phase(ops_dense, scene, rays, phase=11, tile=512,
+                          label=""):
     """K1 (bitwise) and K4 against their plain versions on the operands
-    any_hit builds for ``rays`` at tile 512: every occluder equal (at most
-    1e-5 of rows may differ); K4 bit for bit against its kernel-order
-    model on sampled tiles; K4's tests per warp; K4's times and a bound
-    from the tests this data needs."""
+    any_hit builds for ``rays`` at ray tile ``tile``: every occluder equal
+    (at most 1e-5 of rows may differ); K4 bit for bit against its
+    kernel-order model on sampled tiles; K4's tests per warp; K4's times
+    and a bound from the tests this data needs."""
     o, d, t_min, t_max = ops_dense.flat_rays(rays)
-    TILE = ops_dense._tile_of(rays, 512)
+    TILE = ops_dense._tile_of(rays, tile)
     phase_a_check("K1 worklist any_hit", ops_dense, scene,
                   (o, d, torch.zeros_like(t_min), t_max), TILE)
     tids, cids, phi, tmin, tmax = ops_dense._occl_phase_a(
@@ -1176,7 +1262,7 @@ def occlusion_sweep_phase(ops_dense, scene, rays):
         raise AssertionError(f"K4: {diff} occluders differ from the plain "
                              f"version (> 1e-5 of {pk.numel()} rows)")
     model = model_check(
-        "K4 (phase 11)", ops_dense, tids, TILE, 11, pk,
+        f"K4 (phase {phase})", ops_dense, tids, TILE, phase, pk,
         lambda tiles: ops_dense.run_occlusion_model(*args, **kw,
                                                     tiles=tiles))
     ms = cuda_ms(lambda: ops_dense.run_occlusion(*args, **kw), 10)
@@ -1186,10 +1272,11 @@ def occlusion_sweep_phase(ops_dense, scene, rays):
     W = 32   # one ray a thread
     group_tests, warp_tests = occlusion_warp_tests(
         ops_dense, tids, cids, pk, TILE, C, scene.n_clusters, W)
-    say(11, f"K4 {model}; tests on this data: {tests} that the rays need, "
-            f"{group_tests} in whole lane groups of 4, {warp_tests} that "
-            f"warps of {W} rays run ({1 - group_tests / warp_tests:.4f} of "
-            f"them for rays already done)")
+    say(phase, f"{label}K1 bitwise equal to plain; K4 {model}; tests on "
+               f"this data: {tests} that the rays need, {group_tests} in "
+               f"whole lane groups of 4, {warp_tests} that warps of {W} "
+               f"rays run ({1 - group_tests / warp_tests:.4f} of them for "
+               f"rays already done)")
     b = bound(nbytes(*args[:3], tmin, tmax, pk) + table_bytes(cids, C),
               tests * TEST_FLOPS)
     # An occluder id is right or wrong: the error of a row is 1 where the
@@ -2094,6 +2181,500 @@ def block_phase(phase, p4, dev, read_counts, zero_counts, k2_us):
                f"{launches}")
     return probe_result("block_probe", "tools/probe_block_overhead.py:70",
                         launches["block_probe"], 0.0, ms, plain_ms, b, None)
+
+
+def timed_call(fn):
+    """(fn(), ms): one call between CUDA events, host syncs included."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def kept_queries(dispatch):
+    """Inside the block every query through ``dispatch``'s
+    scene_closest_hit and scene_any_hit runs between two host syncs and
+    is kept, in order: a list of dicts (kind "closest" or "shadow", the
+    rays, the result, perf_counter before and after, the live rays)."""
+    kept = []
+    saved = dispatch.scene_closest_hit, dispatch.scene_any_hit
+
+    def keep(fn, kind):
+        def wrapped(scene, rays, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(scene, rays, *a, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            kept.append(dict(kind=kind, rays=rays, out=out, t0=t0, t1=t1,
+                             live=int((rays.t_max >= 0).sum())))
+            return out
+        return wrapped
+
+    dispatch.scene_closest_hit = keep(saved[0], "closest")
+    dispatch.scene_any_hit = keep(saved[1], "shadow")
+    try:
+        yield kept
+    finally:
+        dispatch.scene_closest_hit, dispatch.scene_any_hit = saved
+
+
+def frame_kernels(phase, rt, ops_dense, ops_regroup, scene, queries):
+    """K1 and K2 on the operands of each regrouped query of a frame, as
+    the engine builds them (any_hit's rays with t_min forced to 0, padded
+    to tiles of 2048 in subgroups of 32): K1 bitwise against its plain
+    version and its model; K2 against its plain version and bit for bit
+    against its kernel-order model on sampled blocks. Returns, for each
+    kernel, the largest error and the sums over the queries of its time
+    (median of 3), its plain version's (one run for K2) and the bytes and
+    operations of its bound."""
+    sums = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+            for k in ("k1", "k2")}
+    parts = []
+
+    def add(k, err, ms, plain_ms, n_bytes, flops):
+        a = sums[k]
+        a["err"] = max(a["err"], err)
+        a["ms"] += ms
+        a["plain_ms"] += plain_ms
+        a["bytes"] += n_bytes
+        a["flops"] += flops
+
+    for i, q in enumerate(queries):
+        rays = q["rays"]
+        if q["kind"] == "shadow":
+            rays = rt.Ray.create(rays.o, rays.d, t_max=rays.t_max)
+        po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+            rays, 2048, 32)
+        rows = (po, pd, ptmin, ptmax)
+        what = f"bounce {i // 2} {q['kind']}"
+        stats, bounds, ek, err, slow = phase_a_check(
+            f"K1 {what}", ops_dense, scene, rows, TILE)
+        k1_ms = graph_ms(lambda: ops_dense.phase_a(stats, bounds), 3)
+        add("k1", err, k1_ms, cuda_ms(lambda: ops_dense.phase_a_plain(
+            stats, bounds), 3), nbytes(stats, bounds, ek),
+            ek.numel() * K1_PAIR_FLOPS)
+        del stats, bounds, ek
+        g = regroup_sweep_check(f"K2 {what}", ops_regroup, scene, rows,
+                                TILE, G, 16, phase)
+        k2_ms = cuda_ms(g["run"], 3)
+        add("k2", g["err"], k2_ms, cuda_ms(g["run_plain"], 1), g["bytes"],
+            g["flops"])
+        say(phase, g["desc"])
+        parts.append(f"{what} K1 {k1_ms:.4f} ms ({slow} pairs on the plain "
+                     f"arithmetic), K2 {k2_ms:.3f} ms on {g['blocks']} "
+                     f"blocks")
+        del g
+    for k in sums.values():
+        k["bound"] = bound(k["bytes"], k["flops"])
+    say(phase, f"K1 bitwise equal to plain and to phase_a_model on each of "
+               f"the frame's {len(queries)} queries: " + "; ".join(parts)
+        + "; sums over the queries: " + ", ".join(
+            f"{n} kernel {k['ms']:.3f} ms plain {k['plain_ms']:.3f} ms "
+            f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
+            for n, k in (("K1", sums["k1"]), ("K2", sums["k2"]))))
+    return sums
+
+
+def pathtracer_frame_setup(rt, dev):
+    """tools/tpu_pathtracer_bench.py at its defaults: the heightfield with
+    two materials in a checker of 64-triangle runs, C=256, the tool's two
+    materials, two lights and camera, and the 1024^2 4-bounce config."""
+    import dataclasses
+    from raycore_tpu_torch.render import pathtracer as tp
+    mesh = rt.displaced_grid_mesh(n=PT_MESH, extent=2.0, amplitude=0.35,
+                                  device=dev)
+    n = mesh.vertices.shape[0]
+    mesh = dataclasses.replace(mesh, metadata=(torch.arange(
+        n, device=dev) // 64) % 2)
+    scene = rt.build_dense(mesh, cluster_size=256)
+    mats = rt.Materials.create(
+        base_color=np.array([[0.75, 0.72, 0.68], [0.9, 0.85, 0.8]],
+                            np.float32),
+        metallic=np.array([0.0, 0.85], np.float32),
+        roughness=np.array([0.8, 0.15], np.float32), device=dev)
+    lights = rt.PointLights.create(
+        position=[[2.5, -2.5, 4.0], [-2.0, 2.0, 3.5]],
+        intensity=[[18.0, 17.0, 16.0], [6.0, 7.0, 9.0]], device=dev)
+    cam = rt.Camera.create(position=(0.0, -3.2, 2.4), target=(0.0, 0.0, 0.3),
+                           up=(0, 0, 1), fov_deg=55.0, device=dev)
+    cfg = tp.PTConfig(width=PT_SIDE, height=PT_SIDE, spp=1,
+                      bounces=PT_BOUNCES, tile_size=2048)
+    return scene, mats, lights, cam, cfg
+
+
+def pathtracer_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
+                     read_counts, zero_counts):
+    """The path-traced production frame (tools/tpu_pathtracer_bench.py at
+    its defaults, BASELINE config #5) through trace_paths_staged: one
+    warm-up frame, then PT_SEEDS frames timed whole with CUDA events (host
+    syncs included), each launching exactly K1 and K2 once a query; a
+    frame with every query timed on its own (live rays, closest, shadow,
+    glue); determinism; the image's range; the closest query of bounce
+    PT_ORACLE_BOUNCE against the oracle and its shadow query's occluders;
+    K1 and K2 on every query's operands (``frame_kernels``); stage 1's
+    share of three queries; PT_BATCHES frames in one batch against their
+    solo frames. Returns the launches of one frame and K1's and K2's
+    numbers on the frame's queries."""
+    from raycore_tpu_torch.render import pathtracer as tp
+    t_phase = time.perf_counter()
+    scene, mats, lights, cam, cfg = pathtracer_frame_setup(rt, dev)
+    R = cfg.width * cfg.height * cfg.spp
+    n_queries = 2 * cfg.bounces
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    frame = lambda s: tp.trace_paths_staged(scene, mats, lights, cam, gen(s),
+                                            cfg)
+    warm, warm_ms = timed_call(lambda: frame(PT_SEEDS[0]))
+    imgs, times, per_frame = {}, [], None
+    for s in PT_SEEDS:
+        zero_counts()
+        imgs[s], ms = timed_call(lambda: frame(s))
+        times.append(ms)
+        per_frame = read_counts(f"path-traced frame seed {s}",
+                                ["phase_a", "regroup_sweep"])
+        if (per_frame["phase_a"], per_frame["regroup_sweep"]) != (
+                n_queries, n_queries):
+            raise AssertionError(f"frame seed {s}: launches {per_frame}, "
+                                 f"expected K1 and K2 once a query "
+                                 f"({n_queries} queries)")
+    med = statistics.median(times)
+    say(phase, f"trace_paths_staged {cfg.width}x{cfg.height}, "
+               f"{cfg.bounces} bounces, {scene.n_prims} tris (C=256): "
+               f"warm-up {warm_ms:.1f} ms; frames (seeds {PT_SEEDS}) "
+               f"{' '.join(f'{x:.2f}' for x in times)} ms, median "
+               f"{med:.2f} ms, range {min(times):.2f}-{max(times):.2f} ms, "
+               f"{n_queries * R / med / 1e3:.3f} Mrays/s over {n_queries} x "
+               f"{R} submitted rays; launches a frame {per_frame}; on "
+               f"{torch.cuda.get_device_name(0)}")
+
+    # Determinism and the image's range.
+    if not torch.equal(warm, imgs[PT_SEEDS[0]]):
+        raise AssertionError("seed 0 rendered twice differs")
+    img = imgs[PT_SEEDS[0]]
+    if (img.shape != (cfg.height, cfg.width, 3)
+            or not bool(torch.isfinite(img).all())
+            or float(img.min()) < 0 or float(img.max()) > 1
+            or float(img.mean()) <= 0.01):
+        raise AssertionError(f"image {tuple(img.shape)}: min "
+                             f"{float(img.min())} max {float(img.max())} "
+                             f"mean {float(img.mean())}")
+
+    # Every query on its own: the dispatch functions wrapped with a sync
+    # on each side.
+    with kept_queries(dispatch) as queries:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detail = frame(PT_SEEDS[0])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    if not torch.equal(detail, warm):
+        raise AssertionError("the per-query frame differs from seed 0's")
+    if len(queries) != n_queries:
+        raise AssertionError(f"{len(queries)} queries, expected {n_queries}")
+    kept = {(i // 2, q["kind"]): q for i, q in enumerate(queries)}
+    prev, parts = t0, []
+    for b in range(cfg.bounces):
+        c, sh = kept[b, "closest"], kept[b, "shadow"]
+        glue = (c["t0"] - prev) + (sh["t0"] - c["t1"])
+        parts.append(f"bounce {b}: live {c['live']} closest "
+                     f"{(c['t1'] - c['t0']) * 1e3:.2f} ms, shadow rays "
+                     f"{sh['live']} {(sh['t1'] - sh['t0']) * 1e3:.2f} ms, "
+                     f"glue {glue * 1e3:.2f} ms")
+        prev = sh["t1"]
+    say(phase, f"per query (synced on each side; frame "
+               f"{(t_end - t0) * 1e3:.1f} ms): " + "; ".join(parts)
+        + f"; after the last query {(t_end - prev) * 1e3:.2f} ms")
+
+    # The bounce's closest query against the oracle, its shadow query's
+    # occluders against the exact test.
+    crays, cres = (kept[PT_ORACLE_BOUNCE, "closest"][k]
+                   for k in ("rays", "out"))
+    live = torch.nonzero(crays.t_max >= 0).squeeze(1)
+    rng = np.random.default_rng(SEED + phase)
+    idx = live[torch.as_tensor(rng.choice(live.numel(), min(
+        PT_ORACLE, live.numel()), replace=False), device=dev)]
+    srays_o = rt.Ray.create(crays.o[idx], crays.d[idx])
+    ref = rt.closest_hit_brute(scene.prims, srays_o)
+    got = cres.map(lambda a: a[idx])
+    o64, d64 = crays.o[idx], crays.d[idx]
+    edge = torch.zeros(idx.numel(), dtype=torch.bool, device=dev)
+    for r in (ref, got):
+        m = edge_margin(scene.prims.vertices[r.prim_idx.clamp_min(0).long()],
+                        o64, d64)
+        edge |= r.hit & (m.abs() <= PT_EDGE)
+    n_hit, n_tie, only_ref, only_got = check_hits(
+        ref, got, f"bounce {PT_ORACLE_BOUNCE} vs oracle", edge=edge,
+        max_only_ref=PT_EDGE_FLIPS, max_only_got=PT_EDGE_FLIPS)
+    srays, occ = (kept[PT_ORACLE_BOUNCE, "shadow"][k]
+                  for k in ("rays", "out"))
+    genuine, t_occ, u, v = occluder_t(scene.prims, occ, srays)
+    near_edge = occluder_t(scene.prims, occ, srays, EDGE_ROUNDING_SLACK)[0]
+    n_fake = int((~genuine).sum())
+    if int((~genuine & ~near_edge).sum()) or n_fake > FAKE_OCCLUDERS_MAX:
+        raise AssertionError(f"bounce {PT_ORACLE_BOUNCE} shadow rays: "
+                             f"{n_fake} occluders the exact test rejects")
+    say(phase, f"bounce {PT_ORACLE_BOUNCE} closest query vs brute oracle: "
+               f"{idx.numel()} sampled live rays, {n_hit} hits agree, "
+               f"{n_tie} prim ties, {only_ref} hit only in the oracle and "
+               f"{only_got} only in the port, all within {PT_EDGE} of an "
+               f"edge; its shadow query: {int(occ.hit.sum())} occluded of "
+               f"{int((srays.t_max >= 0).sum())} live, {n_fake} occluders "
+               f"the exact test rejects at slack 1e-4, each within "
+               f"{EDGE_ROUNDING_SLACK}")
+
+    # K1 and K2 on every query's own operands.
+    kernels = frame_kernels(phase, rt, ops_dense, ops_regroup, scene,
+                            queries)
+
+    # Stage 1 against the whole query, on the primary rays and the oracle
+    # bounce's incoherent rays, and on bounce 0's shadow rays (median of 3
+    # each, CUDA events).
+    split = []
+    for b, kind in ((0, "closest"), (PT_ORACLE_BOUNCE, "closest"),
+                    (0, "shadow")):
+        qrays = kept[b, kind]["rays"]
+        query = rt.closest_hit if kind == "closest" else rt.any_hit
+        if kind == "shadow":      # any_hit's stage 1 runs with t_min = 0
+            qrays = rt.Ray.create(qrays.o, qrays.d, t_max=qrays.t_max)
+        po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
+            qrays, 2048, 32)
+        q_ms = cuda_ms(lambda: query(scene, qrays), 3)
+        st1 = lambda: ops_regroup._stage1_cm_core(scene, po, pd, ptmin,
+                                                  ptmax, TILE, G, 16)
+        counts = st1()[3]
+        st1_ms = cuda_ms(st1, 3)
+        split.append(f"bounce {b} {kind}: query {q_ms:.2f} ms, stage 1 "
+                     f"{st1_ms:.2f} ms ({st1_ms / q_ms:.0%}); "
+                     f"{counts[0]} coarse pairs, {counts[1]} subgroup pairs, "
+                     f"{counts[2]} blocks")
+    say(phase, "queries alone: " + "; ".join(split))
+    del queries, kept
+
+    # PT_BATCHES frames in one batch: every query F x R rays.
+    for F in PT_BATCHES:
+        seeds = list(range(F))
+        for s in seeds:
+            if s not in imgs:
+                imgs[s] = frame(s)
+        batch = lambda: tp.trace_paths_staged_batch(
+            scene, mats, lights, cam, [gen(s) for s in seeds], cfg)
+        _, bw_ms = timed_call(batch)
+        b_times = []
+        for _ in range(2):
+            out, ms = timed_call(batch)
+            b_times.append(ms)
+        for f, s in enumerate(seeds):
+            err = float((out[f] - imgs[s]).abs().max())
+            if err > 1e-6:
+                raise AssertionError(f"batch F={F} frame {f} differs from "
+                                     f"its solo frame by {err}")
+        del out
+        bmed = statistics.median(b_times)
+        say(phase, f"trace_paths_staged_batch F={F} ({F * R} rays a query): "
+                   f"warm-up {bw_ms:.1f} ms, "
+                   f"{' / '.join(f'{x:.2f}' for x in b_times)} ms "
+                   f"({n_queries * F * R / bmed / 1e3:.3f} Mrays/s, "
+                   f"{bmed / F:.2f} ms a frame against {med:.2f} solo); each "
+                   f"frame within 1e-6 of its solo frame; allocated at most "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    say(phase, f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=per_frame, **kernels)
+
+
+def consumers_phase(phase, rt, ops_dense, dispatch, dev, read_counts,
+                    zero_counts):
+    """The renderers and analyses on the card against their CPU twins
+    with the same draws (drawn on the CPU, moved to the card): on the
+    room, render_staged, trace_paths_staged plain and textured,
+    render_step_mts, the simple.py kernels, hits_from_grid,
+    get_illumination and view_factors; collide_instances on
+    particle_scene's manager; a trace_paths_staged frame on a
+    displaced grid below 2^19 rays (K1, K3, K4), each kernel held to its
+    plain version and its model on every query of the card's frame.
+    Integer outputs equal; images under the image rule (render/parity.py)
+    at atol 3e-5 (the wavefront renderers) or 1e-5 (the path tracer)."""
+    from raycore_tpu_torch.analysis import kernels as t_ak
+    from raycore_tpu_torch.render import mts_renderer as t_mts
+    from raycore_tpu_torch.render import pathtracer as t_pt
+    from raycore_tpu_torch.render import simple as t_simple
+    from raycore_tpu_torch.render import wavefront as t_wf
+    from raycore_tpu_torch.render.parity import (Recorder, check_images,
+                                                 cpu_draws)
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    with cpu_draws():
+        rooms = {d: rt.example_scene(device=d) for d in (dev, cpu)}
+        gen = lambda s: torch.Generator(device=cpu).manual_seed(s)
+        W, H = CONSUMER_SIDE
+        results = []
+
+        def both(name, fn, atol, fanout=None, recorded=True, spp=1):
+            """fn(device) on the card and on the CPU, recorded; the image
+            rule on the two images."""
+            recs, imgs = {}, {}
+            for d in (dev, cpu):
+                recs[d] = Recorder(fanout)
+                if recorded:
+                    with recs[d].recording_port():
+                        imgs[d] = fn(d)
+                else:
+                    imgs[d] = fn(d)
+            out = check_images(
+                imgs[cpu], imgs[dev], atol,
+                recs[cpu].queries if recorded else None,
+                recs[dev].queries if recorded else None, spp=spp)
+            results.append(f"{name} max abs {out['max_abs']:.3g}, "
+                           f"{out['n_past']} pixels past {atol:g}")
+            return imgs
+
+        n_lights = rooms[dev][2].position.shape[0]
+        wcfg = rt.RenderConfig(width=W, height=H, spp=1, tile_size=1024)
+        both("render_staged", lambda d: t_wf.render_staged(
+            *rooms[d], gen(1), wcfg), 3e-5, {"any": n_lights})
+        pw, ph, pb = CONSUMER_PT
+        pcfg = t_pt.PTConfig(width=pw, height=ph, spp=1, bounces=pb,
+                             tile_size=256)
+        both("trace_paths_staged", lambda d: t_pt.trace_paths_staged(
+            *rooms[d], gen(2), pcfg), 1e-5)
+        checker = np.indices((8, 8)).sum(0) % 2
+        tex = np.stack([checker, 1 - checker, np.ones_like(checker)],
+                       -1).astype(np.float32)
+
+        def textured(d):
+            s = rt.MultiTypeSet(device=d)
+            h = s.store_texture(tex)
+            refs = torch.full((6,), -1, dtype=torch.int32, device=d)
+            refs[0] = h
+            return t_pt.trace_paths_staged(*rooms[d], gen(3), pcfg,
+                                           pool=s.get_static().textures,
+                                           tex_refs=refs)
+        both("trace_paths_staged textured", textured, 1e-5)
+
+        def mts(d):
+            sset = t_mts.default_material_set(device=d).get_static()
+            scene, _, lights, cam = rooms[d]
+            return t_mts.render_step_mts(scene, sset, lights, cam, gen(4),
+                                         wcfg)
+        both("render_step_mts", mts, 3e-5, recorded=False)
+        simple = [("depth", t_simple.depth_kernel, {}, None, 1),
+                  ("normal", t_simple.normal_kernel, {}, None, 1),
+                  ("shadow", t_simple.shadow_kernel,
+                   {"light_radius": 0.6, "n_shadow": 4}, None, 2),
+                  ("multi_light", t_simple.multi_light_kernel, "lights",
+                   {"any": n_lights}, 1),
+                  ("reflective", t_simple.reflective_kernel, "lights",
+                   {"any": n_lights}, 1)]
+        for name, kernel, kw, fanout, spp in simple:
+            def run(d, kernel=kernel, kw=kw, spp=spp):
+                scene, mats, lights, cam = rooms[d]
+                extra = (dict(lights=lights, materials=mats)
+                         if kw == "lights" else kw)
+                return t_simple.trace(kernel, scene, cam, width=W, height=H,
+                                      spp=spp, gen=gen(5), tile_size=512,
+                                      **extra)
+            # The soft shadows' query rows are light samples of each path
+            # (S, R), which the recorder does not map: images only.
+            both(f"simple.{name}", run, 3e-5, fanout,
+                 recorded=name != "shadow", spp=spp)
+
+        # The analyses: integer outputs equal.
+        down = (0.0, 0.0, -1.0)
+        hits = {d: t_ak.hits_from_grid(rooms[d][0], down, grid_size=64)
+                for d in (dev, cpu)}
+        if not torch.equal(hits[dev].hit.cpu(), hits[cpu].hit):
+            raise AssertionError("hits_from_grid: hit masks differ")
+        n_bins = int(rooms[cpu][0].prims.metadata.shape[0])
+        illum = {d: t_ak.get_illumination(rooms[d][0], down, grid_size=64,
+                                          n_bins=n_bins)
+                 for d in (dev, cpu)}
+        if not torch.equal(illum[dev].cpu(), illum[cpu]):
+            raise AssertionError("get_illumination: counts differ")
+        vf = {}
+        for d in (dev, cpu):
+            # tests/test_analysis.py's two facing quads.
+            quads = [rt.plane_mesh(center=(0, 0, z), u=(1, 0, 0),
+                                   v=(0, 1, 0), metadata=m, device=d)
+                     for z, m in ((0.0, [0, 1]), (1.0, [2, 3]))]
+            mgr = rt.TLAS(device=d)
+            for q in quads:
+                mgr.push(q)
+            tris = rt.Triangle(**{f: torch.cat([getattr(q, f)
+                                                for q in quads])
+                                  for f in quads[0].__dataclass_fields__})
+            vf[d] = t_ak.view_factors(mgr.sync(), tris, gen(6),
+                                      rays_per_triangle=256, n_bins=4,
+                                      ray_batch=128)
+        if not torch.equal(vf[dev].cpu(), vf[cpu]):
+            raise AssertionError(f"view_factors differ: "
+                                 f"{(vf[dev].cpu() - vf[cpu]).abs().max()}")
+        coll = {}
+        for d in (dev, cpu):
+            mgr, _, _ = rt.particle_scene(CONSUMER_PARTICLES, device=d)
+            coll[d] = rt.collide_instances(mgr.sync())
+        if (coll[dev].num_contacts != coll[cpu].num_contacts
+                or not torch.equal(coll[dev].contacts.cpu(),
+                                   coll[cpu].contacts)):
+            raise AssertionError("collide_instances: pairs differ")
+        results.append(
+            f"hits_from_grid {int(hits[dev].hit.sum())} hits, illumination "
+            f"{int(illum[dev].sum())} counts, view_factors "
+            f"{int(vf[dev].sum())} counts, collide_instances "
+            f"{coll[dev].num_contacts} pairs of {CONSUMER_PARTICLES} "
+            f"particles: equal")
+
+        # A displaced grid below 2^19 rays: the worklist engines.
+        n, C, gw, gh = CONSUMER_GRID
+        grids = {d: rt.build_dense(rt.displaced_grid_mesh(n=n, device=d),
+                                   cluster_size=C) for d in (dev, cpu)}
+        gm = {d: (rt.Materials.create(np.full((2 * n * n, 3), 0.6,
+                                              np.float32), device=d),
+                  rt.PointLights.create([[0.0, 0, 5.0]], [[20.0, 20, 20]],
+                                        device=d),
+                  rt.Camera.create(position=(0, -3, 2.5), target=(0, 0, 0),
+                                   device=d)) for d in (dev, cpu)}
+        gcfg = t_pt.PTConfig(width=gw, height=gh, spp=1, bounces=2,
+                             tile_size=256)
+        launches, queries = {}, []
+
+        def grid_frame(d):
+            if d != dev:
+                return t_pt.trace_paths_staged(grids[d], *gm[d], gen(7),
+                                               gcfg)
+            zero_counts()
+            with kept_queries(dispatch) as kept:
+                img = t_pt.trace_paths_staged(grids[d], *gm[d], gen(7),
+                                              gcfg)
+            launches.update(read_counts(
+                "grid frame", ["phase_a", "worklist_sweep",
+                               "occlusion_sweep"]))
+            queries[:] = kept
+            return img
+        both(f"trace_paths_staged grid n={n} C={C} {gw}x{gh}", grid_frame,
+             1e-5)
+        results.append(f"the grid frame's launches {launches}")
+    say(phase, "card against CPU: " + "; ".join(results))
+
+    # The grid frame's kernels on each of its queries' own operands, at
+    # the ray tile dispatch gives its tile_size.
+    tile = dispatch._worklist_tile(gcfg.tile_size)
+    sweeps = []
+    for i, q in enumerate(queries):
+        label = f"grid frame bounce {i // 2} {q['kind']} ({q['live']} live): "
+        if q["kind"] == "closest":
+            k = worklist_sweep_phase(phase, ops_dense, grids[dev], q["rays"],
+                                     tile=tile, label=label)
+            sweeps.append(f"K3 {k['ms']:.3f} ms plain {k['plain_ms']:.3f}")
+        else:
+            k = occlusion_sweep_phase(ops_dense, grids[dev], q["rays"],
+                                      phase=phase, tile=tile, label=label)
+            sweeps.append(f"K4 {k['ms']:.3f} ms plain {k['plain_ms']:.3f}")
+    say(phase, f"the grid frame's {len(queries)} queries: "
+               + "; ".join(sweeps) + f"; phase wall "
+               f"{time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -23,7 +23,15 @@ CPU tensors. The ported slice:
   ``DenseInstancedScene``, ``refresh_instances`` follows its transforms
   each frame, and ``closest_hit``/``any_hit`` sweep it with K1 and K2's
   pairrow mode (``ops/instanced.py``); ``bake_dense`` bakes a ``TLAS``
-  into one world-space ``DenseScene``.
+  into one world-space ``DenseScene``;
+- the consumers: sampling (``core/sampling.py``), the ``MultiTypeSet``
+  (``collections/``), the SoA and config utilities (``utils/``), the
+  wavefront renderer, the path tracer and its staged drivers, the simple
+  and MultiTypeSet renderers, the example scenes and the debug images
+  (``render/``), and the ray-grid, view-factor and collision analyses
+  (``analysis/``). They reach the card only through ``closest_hit`` and
+  ``any_hit``. Where the JAX package takes a PRNG key they take a
+  ``torch.Generator`` (None: one seeded 0 on the scene's device).
 
 ``raycore_tpu_torch.tools`` holds the card probes, the counterparts of the
 repository's TPU measurement tools (P1-P4): each is a hand-written kernel
@@ -70,6 +78,28 @@ from .scene.mesh import (blobby_mesh, box_mesh, build_triangle,
                          build_triangles, displaced_grid_mesh,
                          is_degenerate_face, plane_mesh, sphere_mesh,
                          uv_sphere)
+from .core import sampling
+from .core.sampling import reflect
+from .collections.multitypeset import (MultiTypeSet, SetKey,
+                                       StaticMultiTypeSet, TexturePool, deref,
+                                       is_invalid, is_valid_key,
+                                       maybe_convert_field, sample_bilinear,
+                                       sample_nearest, texture_to_numpy,
+                                       to_tuple, with_index)
+from .analysis.kernels import (RayHits, generate_ray_grid, get_centroid,
+                               get_illumination, hits_from_grid,
+                               view_factors)
+from .analysis.collision import (CollisionResult, collide_instances,
+                                 collide_instances_any)
+from .render.wavefront import (Camera, Materials, PointLights, RenderConfig,
+                               WavefrontRenderer, render_step)
+from .render.scenes import example_scene, particle_scene
+from .render.pathtracer import PTConfig, trace_paths
+from .render.debug_viz import (RayIntersectionResult, ray_plot, save_png,
+                               save_ppm, scene_preview, trace_rays)
+from .utils.soa import (for_unrolled, map_unrolled, reduce_unrolled,
+                        similar_soa, soa_get, soa_set, sum_unrolled,
+                        switch_apply)
 
 __all__ = [
     "Ray", "RayDifferentials", "apply", "check_direction", "increase_hit",
@@ -101,4 +131,19 @@ __all__ = [
     "any_hit_dense_pallas_auto", "closest_hit_brute_pallas",
     "blobby_mesh", "box_mesh", "build_triangle", "build_triangles",
     "displaced_grid_mesh", "is_degenerate_face", "plane_mesh",
-    "sphere_mesh", "uv_sphere"]
+    "sphere_mesh", "uv_sphere",
+    "sampling", "reflect",
+    "MultiTypeSet", "StaticMultiTypeSet", "SetKey", "TexturePool",
+    "with_index", "is_invalid", "is_valid_key", "sample_nearest",
+    "sample_bilinear", "deref", "to_tuple", "maybe_convert_field",
+    "texture_to_numpy",
+    "RayHits", "generate_ray_grid", "hits_from_grid", "get_centroid",
+    "get_illumination", "view_factors",
+    "CollisionResult", "collide_instances", "collide_instances_any",
+    "WavefrontRenderer", "RenderConfig", "Materials", "PointLights",
+    "Camera", "render_step", "example_scene", "particle_scene",
+    "PTConfig", "trace_paths",
+    "RayIntersectionResult", "trace_rays", "scene_preview", "ray_plot",
+    "save_ppm", "save_png",
+    "soa_get", "soa_set", "similar_soa", "for_unrolled", "map_unrolled",
+    "reduce_unrolled", "sum_unrolled", "switch_apply"]

@@ -1,5 +1,6 @@
-"""Carry rays, triangles, boxes, transforms and built scenes across as
-NumPy arrays.
+"""Carry rays, triangles, boxes, transforms, built scenes and the
+renderers' state (materials, lights, camera, texture pool, a static
+MultiTypeSet) across as NumPy arrays.
 
 The dict form of a scene is what ``np.asarray`` gives for each field of a
 ``DenseScene``, ``BLAS``, ``StaticTLAS`` or ``DenseInstancedScene`` from
@@ -15,11 +16,13 @@ import torch
 
 from .accel.dense import DenseScene
 from .accel.types import BLAS, Instances, StaticTLAS
+from .collections.multitypeset import StaticMultiTypeSet, TexturePool
 from .core.bounds import Bounds2, Bounds3
 from .core.device import default_device
 from .core.ray import Ray
 from .core.transforms import Transformation
 from .core.triangle import Triangle
+from .render.wavefront import Camera, Materials, PointLights
 from .scene.instanced import DenseInstancedScene
 
 _SCENE_ARRAYS = ("tri_feats", "cluster_min", "cluster_max", "sub_bounds",
@@ -156,3 +159,59 @@ def instanced_scene_from_numpy(d: dict, device=None) -> DenseInstancedScene:
         cluster_size=int(d["cluster_size"]),
         max_clusters_per_blas=int(d["max_clusters_per_blas"]),
         payload_mask=int(d["payload_mask"]), **arrays)
+
+
+def _f32(a, device):
+    return _tensor(np.asarray(a, np.float32), device)
+
+
+def materials_from_numpy(base_color, metallic, roughness, ior, transmission,
+                         device=None) -> Materials:
+    """``Materials`` from its five columns: (M, 3) and four (M,)."""
+    device = default_device(device)
+    return Materials(base_color=_f32(base_color, device),
+                     metallic=_f32(metallic, device),
+                     roughness=_f32(roughness, device),
+                     ior=_f32(ior, device),
+                     transmission=_f32(transmission, device))
+
+
+def point_lights_from_numpy(position, intensity, device=None) -> PointLights:
+    """``PointLights`` from (L, 3) positions and intensities."""
+    device = default_device(device)
+    return PointLights(position=_f32(position, device),
+                       intensity=_f32(intensity, device))
+
+
+def camera_from_numpy(position, target, up, fov_deg, device=None) -> Camera:
+    device = default_device(device)
+    return Camera(position=_f32(position, device),
+                  target=_f32(target, device), up=_f32(up, device),
+                  fov_deg=_f32(fov_deg, device))
+
+
+def texture_pool_from_numpy(data, records, device=None) -> TexturePool:
+    """``TexturePool`` from its flat float32 data and (n, 4) int32
+    records."""
+    device = default_device(device)
+    return TexturePool(data=_f32(data, device),
+                       records=_tensor(np.asarray(records, np.int32),
+                                       device))
+
+
+def static_multitypeset_from_numpy(tables, counts, data, records,
+                                   device=None) -> StaticMultiTypeSet:
+    """``StaticMultiTypeSet`` from its per-type tables (a sequence of
+    dicts of arrays; float columns as float32, the others as int32), its
+    (n_types,) counts and its texture pool's data and records."""
+    device = default_device(device)
+
+    def column(a):
+        a = np.asarray(a)
+        return _tensor(a.astype(np.float32 if a.dtype.kind == "f"
+                                else np.int32), device)
+
+    return StaticMultiTypeSet(
+        tables=tuple({k: column(v) for k, v in t.items()} for t in tables),
+        counts=_tensor(np.asarray(counts, np.int32), device),
+        textures=texture_pool_from_numpy(data, records, device))

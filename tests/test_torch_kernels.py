@@ -957,3 +957,47 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="1024"):
         t_block.run_block("full", 32, 64, t_block.block_ids(
             2, 64, 16, 4, gen)[0], cids, tbl, feats)
+
+
+def test_path_traced_frame_on_card_matches_cpu(cuda):
+    """A 64x48 trace_paths_staged frame (2 bounces) on a displaced grid on
+    the card against the same frame on the CPU, both drawing from a CPU
+    generator seeded alike; the image rule (render/parity.py) at atol
+    1e-5, every query recorded. Below 2^19 rays: K1, K3 and K4."""
+    import dataclasses
+    from raycore_tpu_torch.render import pathtracer as tp
+    from raycore_tpu_torch.render.parity import (Recorder, check_images,
+                                                 cpu_draws)
+    cpu = torch.device("cpu")
+
+    def frame(dev):
+        mesh = rt.displaced_grid_mesh(n=64, device=dev)
+        mesh = dataclasses.replace(mesh, metadata=(torch.arange(
+            mesh.vertices.shape[0], device=dev) // 64) % 2)
+        scene = rt.build_dense(mesh, cluster_size=128)
+        mats = rt.Materials.create([[0.75, 0.72, 0.68], [0.9, 0.85, 0.8]],
+                                   metallic=[0.0, 0.85],
+                                   roughness=[0.8, 0.15], device=dev)
+        lights = rt.PointLights.create([[2.5, -2.5, 4.0], [-2.0, 2.0, 3.5]],
+                                       [[18.0, 17, 16], [6.0, 7, 9]],
+                                       device=dev)
+        cam = rt.Camera.create((0.0, -3.2, 2.4), (0.0, 0.0, 0.3),
+                               fov_deg=55.0, device=dev)
+        cfg = tp.PTConfig(width=64, height=48, spp=1, bounces=2,
+                          tile_size=256)
+        rec = Recorder()
+        with cpu_draws(), rec.recording_port():
+            img = tp.trace_paths_staged(scene, mats, lights, cam,
+                                        torch.Generator().manual_seed(3),
+                                        cfg)
+        return img, rec
+
+    ref, rec_c = frame(cpu)
+    counts = (ops_dense.run_worklist.launches,
+              ops_dense.run_occlusion.launches)
+    got, rec_g = frame(cuda)
+    assert got.device.type == "cuda"
+    assert ops_dense.run_worklist.launches == counts[0] + 2
+    assert ops_dense.run_occlusion.launches == counts[1] + 2
+    out = check_images(ref, got, 1e-5, rec_c.queries, rec_g.queries)
+    assert out["rows"] >= 64 * 48 and float(got.mean()) > 0.005

@@ -7,6 +7,7 @@ port on CPU tensors (so its kernel wrappers take their plain versions).
 (tests/test_pallas_regroup.py:_check).
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -315,3 +316,140 @@ def engine_rays(rng, n=2048, span=4.5):
     d = (tgt - o).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o, d.astype(np.float32)
+
+
+# --- the renderers' random draws and state on both packages -------------
+
+
+class JaxDraws:
+    """A JAX PRNG key passed where the port takes a torch.Generator. With
+    ``feed_jax_draws`` the port's draw helpers split it as the JAX
+    package's ``schedule`` does, so both packages draw the same numbers:
+    "wave" (wavefront.py: the key itself for the pixel jitter, fold_in(key,
+    1) for the roughness), "path" (pathtracer.py: split(key) for the
+    primary rays, then split(fk, 4) each bounce), "simple" (simple.py:
+    split(key) into the jitter's and the kernel's keys), "batches"
+    (view_factors: split(key) each batch, then split(sub)) and "plain"
+    (sampling: the key itself)."""
+
+    def __init__(self, key, schedule):
+        self.key, self.schedule = key, schedule
+
+    def _t(self, x, device, dtype=torch.float32):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    def pixel_jitter(self, H, W, spp, device):
+        key = self.key
+        if self.schedule == "path":
+            self.key, key = jax.random.split(self.key)
+        return self._t(jax.random.uniform(key, (H, W, spp, 2), jnp.float32),
+                       device)
+
+    def roughness(self, shape, device):
+        k = jax.random.fold_in(self.key, 1)
+        return self._t(jax.random.uniform(k, tuple(shape), jnp.float32),
+                       device)
+
+    def bounce(self, R, n_lights, device):
+        self.key, kl, kb, kr = jax.random.split(self.key, 4)
+        return (self._t(jax.random.randint(kl, (R,), 0, n_lights), device,
+                        torch.int64),
+                self._t(jax.random.uniform(kb, (R, 3)), device),
+                self._t(jax.random.normal(kr, (R, 3)), device))
+
+    def simple_keys(self):
+        return jax.random.split(self.key)
+
+    def primary(self, H, W, spp, device):
+        if spp > 1:
+            return self._t(jax.random.uniform(
+                self.simple_keys()[0], (H, W, spp, 2), jnp.float32), device)
+        return torch.full((H, W, 1, 2), 0.5, device=device)
+
+    def disk(self, S, R, device):
+        return self._t(jax.random.uniform(self.simple_keys()[1], (S, R, 2)),
+                       device)
+
+    def batch(self, T, B, device):
+        self.key, sub = jax.random.split(self.key)
+        k1, k2 = jax.random.split(sub)
+        return (self._t(jax.random.uniform(k1, (T, B, 2)), device),
+                self._t(jax.random.uniform(k2, (T, B, 2)), device))
+
+    def uniform(self, shape, device):
+        return self._t(jax.random.uniform(self.key, tuple(shape),
+                                          jnp.float32), device)
+
+
+def feed_jax_draws(monkeypatch):
+    """Point every draw helper of the port at a ``JaxDraws`` argument."""
+    from raycore_tpu_torch.analysis import kernels as t_ak
+    from raycore_tpu_torch.core import sampling as t_s
+    from raycore_tpu_torch.render import pathtracer as t_pt
+    from raycore_tpu_torch.render import simple as t_simple
+    from raycore_tpu_torch.render import wavefront as t_wf
+    monkeypatch.setattr(t_wf, "_pixel_jitter",
+                        lambda g, H, W, spp, dev: g.pixel_jitter(H, W, spp,
+                                                                 dev))
+    monkeypatch.setattr(t_wf, "_roughness_draws",
+                        lambda g, shape, dev: g.roughness(shape, dev))
+    monkeypatch.setattr(t_pt, "_bounce_draws",
+                        lambda g, R, L, dev: g.bounce(R, L, dev))
+    monkeypatch.setattr(t_simple, "_primary_jitter",
+                        lambda g, H, W, spp, dev: g.primary(H, W, spp, dev))
+    monkeypatch.setattr(t_simple, "_disk_draws",
+                        lambda g, S, R, dev: g.disk(S, R, dev))
+    monkeypatch.setattr(t_ak, "_batch_draws",
+                        lambda g, T, B, dev: g.batch(T, B, dev))
+    monkeypatch.setattr(t_s, "_uniform",
+                        lambda g, shape, dev: g.uniform(shape, dev))
+
+
+def render_state_from_jax(materials, lights, camera):
+    """JAX Materials, PointLights and Camera as the port's, on the CPU."""
+    from raycore_tpu_torch import convert
+    n = lambda a: np.asarray(a)
+    return (convert.materials_from_numpy(
+                n(materials.base_color), n(materials.metallic),
+                n(materials.roughness), n(materials.ior),
+                n(materials.transmission), device=CPU),
+            convert.point_lights_from_numpy(n(lights.position),
+                                            n(lights.intensity), device=CPU),
+            convert.camera_from_numpy(n(camera.position), n(camera.target),
+                                      n(camera.up), n(camera.fov_deg),
+                                      device=CPU))
+
+
+
+class _RowNorms:
+    """``jax.numpy`` with ``linalg.norm(v, -1, keepdims=True)`` read as the
+    per-row norm its callers mean (``axis=-1``); JAX takes the -1 as
+    ``ord``, a matrix norm of the whole batch (ROADMAP Q9)."""
+
+    class linalg:
+        @staticmethod
+        def norm(x, ord=None, axis=None, keepdims=False):
+            if ord == -1 and axis is None:
+                ord, axis = None, -1
+            return jnp.linalg.norm(x, ord, axis, keepdims)
+
+        def __getattr__(self, name):
+            return getattr(jnp.linalg, name)
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def jax_row_norms(monkeypatch):
+    """Run the JAX renderers with the per-row norms the port decided on
+    (ROADMAP Q9): ``jnp`` swapped in render/simple.py, pathtracer.py and
+    mts_renderer.py, and their jitted entry points run unjitted so that
+    no earlier trace with the matrix norm is reused."""
+    from raycore_tpu.render import mts_renderer as jM
+    from raycore_tpu.render import pathtracer as jp
+    from raycore_tpu.render import simple as jS
+    for mod in (jS, jp, jM):
+        monkeypatch.setattr(mod, "jnp", _RowNorms())
+    for mod, name in ((jp, "trace_paths"), (jp, "_pt_shade_and_sample"),
+                      (jM, "render_step_mts")):
+        monkeypatch.setattr(mod, name, getattr(mod, name).__wrapped__)
