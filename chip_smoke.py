@@ -121,8 +121,37 @@ count set to 0 just before it and read just after:
      worklist: K1, K3 and K4, each held to its plain version and its
      model on every query of the card's frame). Integer outputs equal;
      every image under the image rule of render/parity.py.
+ 23. the rounds engine (closest_hit_dense at its defaults) on the
+     headline: one counted query (K1 once and no other kernel), the
+     median and range of 3 more, the rounds taken; K1 bit for bit
+     against its plain version on this query's operands; the hits
+     against phase 6's regrouped result under the engine contract (t and
+     prim ties within ROUNDS_TIE: the engine reports the featurized t)
+     with phase 7's x == y rule, and a 4096-ray oracle sample;
+     any_hit_dense on phase 11's 1M shadow rays under phase 11's rule
+     and against the regrouped any_hit; morton_sort_rays on a shuffled
+     copy of the grid, queried and un-permuted, against the plain query.
+ 24. BVH4 on the headline mesh: build_blas4 timed cold and warm, its rows
+     equal to a CPU collapse of the same BVH2 rows; closest_hit4 and
+     any_hit4 on 65,536 of the grid's rays against the binary traversal
+     on the same BLAS and a 4096-ray oracle sample, each in Mrays/s.
+ 25. the accel protocol, the transport records and the IO: TLASAccel
+     and BruteAccel on tests/test_contract.py's scene (they must agree);
+     trace_closest_hits on phase 20's 256-instance StaticTLAS against the
+     oracle; save_scene/load_scene of the headline DenseScene (file size,
+     seconds; tables and the headline query bit for bit); load_obj
+     (native) of the headline mesh written as OBJ with %.9g (seconds;
+     build_dense on it gives the tables bit for bit).
+ 26. the two-phase classifier on CLASSIFIER_TILES headline tiles, every
+     cluster phase A keeps: one bf16 pass (classify_block) and bf16x3,
+     sound against float64 truth, and the share of ambiguous rays.
+ 27. ray sharding: SHARD_RANKS gloo ranks on the one card
+     (python -m raycore_tpu_torch.parallel.dryrun): the sharded dense
+     query on the headline (K1 and K2 once per rank) against phase 6's
+     result, and distributed_illumination and distributed_closest_hit on
+     a two-instance StaticTLAS against the single process.
 
-Every query path (phases 6, 8-14 and 19-22) also holds the kernels it launched
+Every query path (phases 6, 8-14 and 19-23) also holds the kernels it launched
 against their plain versions on that path's own operands: K1 bitwise on
 its phase-A inputs (and against its model), and its sweep kernel (K2-K6)
 on its own blocks or rays. Every kernel that a path does not name must not launch on it.
@@ -140,7 +169,8 @@ subgroup that pads a cluster's last block). Phase 13 also times K5 with
 its slices staged whole against the launched 64-lane chunks.
 
 The line before the last is a JSON object with each kernel's launches on
-its path, error against its plain version, times and bound (K2 three
+its path, error against its plain version, times and bound (K1 twice: on
+the headline and on the rounds engine's headline query; K2 three
 times: on the headline, on the blobby cell's multiwave path and on the
 256-instance frame in its pairrow mode; K1 and K2 once more on the
 path-traced frame, with one frame's launches and the sums of their
@@ -155,12 +185,17 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 INT32_MAX = 0x7FFFFFFF
 SEED = 0
+# The headline scene (bench.py's defaults): displaced_grid_mesh(707),
+# 999,698 triangles, at C = HEADLINE_C.
+HEADLINE_MESH = dict(n=707, extent=2.0, amplitude=0.35)
+HEADLINE_C = 256
 # Hit-mask differences against the oracle allowed among the 1024 headline
 # rays on the x == y line, which run exactly along the grid's diagonal
 # edges. Neither test is watertight there. The featurized sweep's table
@@ -289,6 +324,24 @@ CONSUMER_SIDE = (64, 48)
 CONSUMER_PT = (32, 24, 3)
 CONSUMER_GRID = (128, 128, 256, 192)
 CONSUMER_PARTICLES = 1024
+# The rounds engine (phase 23) reports t from the featurized test, not from
+# the exact recompute, so against the regrouped engine and the oracle its
+# t agrees within the engine contract's rtol 2e-5, and a differing winner
+# must be a t tie within that bound. Its any_hit may differ from the
+# regrouped any_hit on at most ANY_FLIPS_MAX of the 1M shadow rays, each
+# at an edge (an occluder the exact test rejects at slack 1e-4) or within
+# NEAR_SURFACE_T of the origin.
+ROUNDS_TIE = 2e-5
+ANY_FLIPS_MAX = 16
+# BVH4 (phase 24): every BVH4_STRIDE-th headline ray (65,536), a cut: the
+# traversals run at a few hundredths of a Mray/s.
+BVH4_STRIDE = 16
+# The classifier (phase 26): headline tiles of 2048 rays drawn with a seed.
+CLASSIFIER_TILES = 32
+# Sharding (phase 27): gloo ranks on the one card and the limit on their
+# subprocess.
+SHARD_RANKS = 2
+SHARD_TIMEOUT_S = 300
 # The card probes' sizes, the tools' defaults: P1's table rows and steps,
 # P2's TILE and blocks, P4's blocks.
 GATHER_SHAPE = (8192, 2048)
@@ -544,13 +597,12 @@ def main():
            f"{time.perf_counter() - t0:.2f} s")
 
     # 3. Headline scene.
-    mesh = rt.displaced_grid_mesh(n=707, extent=2.0, amplitude=0.35,
-                                  device=dev)
+    mesh = rt.displaced_grid_mesh(**HEADLINE_MESH, device=dev)
 
     def build():
         torch.cuda.synchronize()
         t = time.perf_counter()
-        s = rt.build_dense(mesh, cluster_size=256)
+        s = rt.build_dense(mesh, cluster_size=HEADLINE_C)
         torch.cuda.synchronize()
         return s, (time.perf_counter() - t) * 1e3
 
@@ -876,7 +928,7 @@ def main():
     packed_phase(13, rt, ops_dense, ops_regroup, scene, rays,
                  lambda: ops_regroup.closest_hit_packed(scene, rays), res_c,
                  head, diag, launches_c)
-    del res_c, head
+    del res_c
 
     # 14. The dense brute-force sweep (K6) on a 65,024-triangle sphere, the
     # scale ops/pallas_brute.py names ("meshes up to ~64K triangles").
@@ -905,6 +957,22 @@ def main():
     consumers_phase(22, rt, ops_dense, dispatch, dev, read_counts,
                     zero_counts)
 
+    # 23. The rounds engine on the headline: K1 once a query.
+    k1_rounds = rounds_phase(23, rt, ops_dense, scene, o, d, head, diag,
+                             shadow_1m, read_counts, zero_counts)
+
+    # 24. The BVH4 layer on the 1M heightfield.
+    bvh4_phase(24, rt, mesh, o, d, diag)
+
+    # 25. The accel protocol, the transport records and the IO.
+    surface_phase(25, rt, dev, scene, mesh, rays)
+
+    # 26. The two-phase classifier on the headline's candidates.
+    classifier_phase(26, rt, scene, o, d)
+
+    # 27. Ray sharding in gloo ranks on the one card.
+    sharding_phase(27, rt, dev, o, d, head, diag)
+
     kernels = [
         {"name": "phase_a", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/phase_a.cu",
@@ -912,6 +980,7 @@ def main():
          "launches": launches["phase_a"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
+        k1_rounds,
         {"name": "regroup_sweep", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/regroup_sweep.cu",
          "replaces": "raycore_tpu/ops/pallas_regroup.py:191",
@@ -1551,6 +1620,19 @@ def multiwave_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
                 plain_ms=k2["wave"][1] + k2["remainder"][1], bound=b)
 
 
+def instanced_inputs(rt, dev):
+    """tools/tpu_instanced_bench.py's three base meshes and the
+    INSTANCED_COUNT instance centres drawn from INSTANCED_SEED."""
+    rng = np.random.default_rng(INSTANCED_SEED)
+    bases = [rt.sphere_mesh(radius=0.45, n_theta=16, n_phi=32, device=dev),
+             rt.box_mesh(device=dev),
+             rt.sphere_mesh(radius=0.3, n_theta=10, n_phi=20, device=dev)]
+    N = INSTANCED_COUNT
+    centers = np.stack([rng.uniform(-8, 8, N), rng.uniform(-8, 8, N),
+                        rng.uniform(-1, 1, N)], -1).astype(np.float32)
+    return bases, centers
+
+
 def instanced_frame_rays(side, device):
     """tools/tpu_instanced_bench.py's rays: a side x side grid over
     [-8.5, 8.5]^2 at z = 6 looking down, in row order."""
@@ -1614,15 +1696,9 @@ def instanced_phase(phase, rt, ops_dense, ops_regroup, dev, read_counts,
     kernel-order model) on the last frame's operands; an oracle and
     traversal sample; any_hit; the traversal's time. Returns K2's
     numbers on this path."""
-    from types import SimpleNamespace
     from raycore_tpu_torch.ops import instanced as ops_inst
-    rng = np.random.default_rng(INSTANCED_SEED)
-    bases = [rt.sphere_mesh(radius=0.45, n_theta=16, n_phi=32, device=dev),
-             rt.box_mesh(device=dev),
-             rt.sphere_mesh(radius=0.3, n_theta=10, n_phi=20, device=dev)]
+    bases, centers = instanced_inputs(rt, dev)
     N = INSTANCED_COUNT
-    centers = np.stack([rng.uniform(-8, 8, N), rng.uniform(-8, 8, N),
-                        rng.uniform(-1, 1, N)], -1).astype(np.float32)
 
     def transform(i, shift):
         m = np.eye(3, 4, dtype=np.float32)
@@ -2675,6 +2751,582 @@ def consumers_phase(phase, rt, ops_dense, dispatch, dev, read_counts,
     say(phase, f"the grid frame's {len(queries)} queries: "
                + "; ".join(sweeps) + f"; phase wall "
                f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phases 23-27: the rest of the public surface ---------------------------
+
+def counted_query(what, fn, want, read_counts, zero_counts):
+    """(fn(), ms, launches): one call between CUDA events, with every
+    kernel's count set to 0 just before it and read just after; each
+    kernel in ``want`` must have launched exactly once and no other."""
+    zero_counts()
+    out, ms = timed_call(fn)
+    launches = read_counts(what, want)
+    if any(launches[k] != 1 for k in want):
+        raise AssertionError(f"{what}: launches {launches}, expected each of "
+                             f"{want} once")
+    return out, ms, launches
+
+
+def as_ids(res, ids):
+    """``res``'s hit and t with ``ids`` as its prim identity, for
+    ``check_hits``."""
+    return SimpleNamespace(hit=res.hit, t=res.t, prim_idx=ids)
+
+
+def rounds_phase(phase, rt, ops_dense, scene, o, d, head, diag, shadow,
+                 read_counts, zero_counts):
+    """The rounds engine (closest_hit_dense at its defaults, tile 2048, 4
+    clusters a round) on the headline: one counted query (K1 once), the
+    median and range of 3 more, the rounds taken; K1 bit for bit against
+    its plain version on this query's operands, and its times and bound;
+    the hits against phase 6's regrouped result under the engine contract
+    with ROUNDS_TIE as the tie bound (the rounds engine reports the
+    featurized t, not the exact recompute) and phase 7's x == y rule, and
+    a 4096-ray oracle sample; any_hit_dense on phase 11's 1M shadow rays
+    against the regrouped any_hit under phase 11's rule; the query on a
+    shuffled copy of the grid, Morton-sorted and un-permuted, against the
+    plain query. Returns K1's entry for the kernels line."""
+    from raycore_tpu_torch.accel import dense as dense_mod
+    rays = rt.Ray.create(o, d)
+    R = o.shape[0]
+    res, first_ms, launches = counted_query(
+        "closest_hit_dense", lambda: rt.closest_hit_dense(scene, rays),
+        ["phase_a"], read_counts, zero_counts)
+    times = [timed_call(lambda: rt.closest_hit_dense(scene, rays))[1]
+             for _ in range(3)]
+    _, rounds = dense_mod._dense_query(scene, rays, tile=2048,
+                                       select_per_round=4, max_rounds=1024)
+    med = statistics.median(times)
+    off_diag = int((~res.hit & ~diag).sum())
+    say(phase, f"closest_hit_dense {R} rays: first {first_ms:.1f} ms, then "
+               f"{' '.join(f'{t:.1f}' for t in times)} ms, median {med:.1f} "
+               f"ms ({R / med / 1e3:.3f} Mrays/s), range "
+               f"{min(times):.1f}-{max(times):.1f} ms, {rounds} rounds of 4 "
+               f"clusters a tile; launches {launches}; hit_frac "
+               f"{float(res.hit.float().mean())} ({off_diag} misses off the "
+               f"x == y line)")
+    if off_diag or not bool(torch.isfinite(res.t).all()):
+        raise AssertionError(f"rounds engine: {off_diag} misses off the "
+                             f"x == y line or a t that is not finite")
+
+    stats, bounds, ek, k1_err, k1_slow = phase_a_check(
+        "K1 rounds engine", ops_dense, scene, ops_dense.flat_rays(rays), 2048)
+    k1_ms = graph_ms(lambda: ops_dense.phase_a(stats, bounds), 5)
+    k1_plain_ms = cuda_ms(lambda: ops_dense.phase_a_plain(stats, bounds), 5,
+                          inner=10)
+    k1_bound = bound(nbytes(stats, bounds, ek), ek.numel() * K1_PAIR_FLOPS)
+    ref = SimpleNamespace(hit=head[0], t=head[1], prim_idx=head[2])
+    n_both, n_tie, only_reg, only_rounds = check_hits(
+        ref, res, "rounds vs regrouped", edge=diag,
+        max_only_ref=DIAG_PORT_MISSES_MAX, max_only_got=DIAG_PORT_MISSES_MAX,
+        tie=ROUNDS_TIE)
+    same = int((res.hit & ref.hit & (res.t == ref.t)
+                & (res.prim_idx == ref.prim_idx)).sum())
+    say(phase, f"K1 {tuple(ek.shape)} bitwise equal to plain and model "
+               f"({k1_slow} pairs on the plain arithmetic), kernel "
+               f"{k1_ms:.4f} ms plain {k1_plain_ms:.4f} ms bound "
+               f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); vs the regrouped "
+               f"query: {n_both} both hit, {n_tie} prim ties within "
+               f"{ROUNDS_TIE}, {same} with equal t bits and prim; on the "
+               f"line {only_reg} hit only in the regrouped engine and "
+               f"{only_rounds} only in the rounds engine")
+    oracle_sample_phase(phase, rt, scene, o, d, res, diag, ROUNDS_TIE,
+                        np.random.default_rng(SEED + phase))
+
+    # Occlusion on phase 11's shadow rays.
+    occ, a_ms, a_launches = counted_query(
+        "any_hit_dense", lambda: rt.any_hit_dense(scene, shadow),
+        ["phase_a"], read_counts, zero_counts)
+    reg = rt.any_hit(scene, shadow)
+    genuine, t_occ, _, _ = occluder_t(scene.prims, occ, shadow)
+    near_edge = occluder_t(scene.prims, occ, shadow, EDGE_ROUNDING_SLACK)[0]
+    fake = ~genuine
+    if int((fake & ~near_edge).sum()) or int(fake.sum()) > FAKE_OCCLUDERS_MAX:
+        raise AssertionError(f"any_hit_dense: {int(fake.sum())} occluders the "
+                             f"exact test rejects at slack 1e-4, "
+                             f"{int((fake & ~near_edge).sum())} also at "
+                             f"{EDGE_ROUNDING_SLACK}")
+    n_flip, n_near = shadow_oracle(rt, scene, shadow, occ, t_occ,
+                                   np.random.default_rng(SEED + phase))
+    reg_genuine, reg_t, _, _ = occluder_t(scene.prims, reg, shadow)
+    flips = occ.hit != reg.hit
+    explained = fake | ~reg_genuine | (t_occ < NEAR_SURFACE_T) \
+        | (reg_t < NEAR_SURFACE_T)
+    if int((flips & ~explained).sum()) or int(flips.sum()) > ANY_FLIPS_MAX:
+        raise AssertionError(f"any_hit_dense vs the regrouped any_hit: "
+                             f"{int(flips.sum())} hit-mask differences (at "
+                             f"most {ANY_FLIPS_MAX}), "
+                             f"{int((flips & ~explained).sum())} away from "
+                             f"an edge and the surface")
+    say(phase, f"any_hit_dense on {shadow.o.shape[0]} shadow rays: "
+               f"{a_ms:.1f} ms, launches {a_launches}, occluded "
+               f"{float(occ.hit.float().mean()):.6f}; {int(fake.sum())} "
+               f"occluders within {EDGE_ROUNDING_SLACK} of the triangle; "
+               f"sample vs oracle {n_flip} differences ({n_near} near the "
+               f"surface); vs the regrouped any_hit {int(flips.sum())} "
+               f"hit-mask differences, each at an edge or the surface")
+
+    # Sort a shuffled grid, query, un-permute.
+    perm = torch.as_tensor(np.random.default_rng(SEED + phase).permutation(R),
+                           device=o.device)
+    shuf = rt.Ray.create(o[perm], d[perm])
+    (srt, inv), sort_ms = timed_call(lambda: rt.morton_sort_rays(
+        shuf, scene.root_aabb[0], scene.root_aabb[1]))
+    # closest_hit_dense's body, which also gives the rounds taken.
+    (sres, s_rounds), s_ms = timed_call(lambda: dense_mod._dense_query(
+        scene, srt, tile=2048, select_per_round=4, max_rounds=1024))
+    back = torch.argsort(perm)
+    got = sres.map(lambda a: a[inv][back])
+    s_both, s_tie, _, _ = check_hits(res, got, "Morton-sorted shuffled grid",
+                                     tie=2e-6)
+    s_same = int(((got.hit == res.hit) & (got.t == res.t)
+                  & (got.prim_idx == res.prim_idx)).sum())
+    say(phase, f"shuffled grid: morton_sort_rays {sort_ms:.1f} ms, query "
+               f"{s_ms:.1f} ms ({s_rounds} rounds: a 2048-ray tile of the "
+               f"sorted order can straddle a jump of the Morton curve); "
+               f"un-permuted: equal hit masks, {s_both} hits, "
+               f"{s_tie} prim ties at equal t, {s_same} rows with equal t "
+               f"bits and prim")
+    return {"name": "phase_a", "route": "cuda",
+            "source": "raycore_tpu_torch/csrc/phase_a.cu",
+            "replaces": "raycore_tpu/ops/pallas_dense.py:445",
+            "path": "rounds engine, headline",
+            "launches": launches["phase_a"], "max_abs_err": k1_err,
+            "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1], "library_ms": None}
+
+
+def bvh4_phase(phase, rt, mesh, o, d, diag):
+    """The BVH4 layer on the 1M heightfield: build_blas4 timed cold and
+    warm, its rows equal to a CPU collapse of the same BVH2 rows;
+    closest_hit4 and any_hit4 on every BVH4_STRIDE-th headline ray
+    (65,536) against the binary traversal on the same BLAS (equal hit
+    masks, t and prim up to exact ties) and a 4096-ray oracle sample,
+    each timed once beside the binary traversal."""
+    from raycore_tpu_torch.accel import wide
+
+    def build():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        b4 = rt.build_blas4(mesh)
+        torch.cuda.synchronize()
+        return b4, (time.perf_counter() - t) * 1e3
+
+    _, cold = build()
+    b4, warm = build()
+    blas = rt.build_blas(mesh)
+    c4, c_ms = timed_call(lambda: rt.collapse_blas(blas))
+    t = time.perf_counter()
+    cpu_rows = wide._collapse(blas.nodes.cpu())
+    cpu_s = time.perf_counter() - t
+    for got, what in ((b4.nodes4, "build_blas4"), (c4.nodes4, "collapse")):
+        if not torch.equal(got.cpu(), cpu_rows):
+            raise AssertionError(f"BVH4 {what} rows differ from the CPU "
+                                 f"collapse in {int((got.cpu() != cpu_rows).sum())}"
+                                 f" entries")
+    say(phase, f"build_blas4 on {mesh.vertices.shape[0]} tris: cold "
+               f"{cold:.1f} ms warm {warm:.1f} ms (the collapse alone "
+               f"{c_ms:.2f} ms on the card, {cpu_s:.2f} s on the CPU); "
+               f"nodes4 {tuple(b4.nodes4.shape)} equal to the CPU collapse")
+
+    sub = slice(None, None, BVH4_STRIDE)
+    so, sd = o[sub].contiguous(), d[sub].contiguous()
+    srays = rt.Ray.create(so, sd)
+    n = so.shape[0]
+    r4, ms4 = timed_call(lambda: rt.closest_hit4(b4, srays))
+    a4, msa = timed_call(lambda: rt.any_hit4(b4, srays))
+    static = rt.blas_to_static_tlas(blas)
+    r2, ms2 = timed_call(lambda: rt.closest_hit(static, srays))
+    n_both, n_tie, b_ref, b_got = check_hits(
+        r2, r4, "closest_hit4 vs traversal", edge=diag[sub],
+        max_only_ref=DIAG_PORT_MISSES_MAX, max_only_got=DIAG_PORT_MISSES_MAX,
+        tie=2e-6)
+    if not torch.equal(a4.hit, r4.hit):
+        raise AssertionError(f"any_hit4: {int((a4.hit != r4.hit).sum())} "
+                             f"hit-mask differences from closest_hit4")
+    sdiag = diag[sub]
+    rng = np.random.default_rng(SEED + phase)
+    pick = np.union1d(rng.choice(n, min(4096, n), replace=False),
+                      torch.nonzero(sdiag).squeeze(1).cpu().numpy())
+    idx = torch.as_tensor(pick, device=o.device)
+    ref = rt.closest_hit_brute(mesh, rt.Ray.create(so[idx], sd[idx]))
+    got = r4.map(lambda a: a[idx])
+    o_both, o_tie, o_ref, o_got = check_hits(
+        as_ids(ref, ref.triangle.metadata), as_ids(got, got.triangle.metadata),
+        "closest_hit4 vs oracle", edge=sdiag[idx],
+        max_only_ref=DIAG_PORT_MISSES_MAX,
+        max_only_got=DIAG_ORACLE_MISSES_MAX, tie=2e-6)
+    rate = lambda ms: n / ms / 1e3
+    say(phase, f"{n} rays: closest_hit4 {ms4:.1f} ms ({rate(ms4):.4f} "
+               f"Mrays/s), any_hit4 {msa:.1f} ms ({rate(msa):.4f} Mrays/s), "
+               f"binary traversal on the same BLAS {ms2:.1f} ms "
+               f"({rate(ms2):.4f} Mrays/s); vs the traversal {n_both} both "
+               f"hit, {n_tie} prim ties, on the x == y line {b_ref} hit only "
+               f"in the traversal and {b_got} only in BVH4; any_hit4's mask equal to "
+               f"closest_hit4's; vs oracle on {idx.numel()} rays "
+               f"({int(sdiag[idx].sum())} on the x == y line) {o_both} both "
+               f"hit, {o_tie} ties, {o_ref} only in the oracle and {o_got} "
+               f"only in BVH4 on the line")
+
+
+def fill_contract(accel, meshes):
+    """tests/test_contract.py's scene: a sphere, and a box moved 3 along x
+    with instance_id 7."""
+    tr = np.eye(3, 4, dtype=np.float32)
+    tr[0, 3] = 3.0
+    accel.push(meshes[0], None)
+    accel.push(meshes[1], tr, instance_id=7)
+    return accel
+
+
+def instanced_tlas(rt, dev):
+    """Phase 20's instances pushed into a TLAS at their first
+    positions."""
+    bases, centers = instanced_inputs(rt, dev)
+    mgr = rt.TLAS(device=dev)
+    for i, c in enumerate(centers):
+        m = np.eye(3, 4, dtype=np.float32)
+        m[:, 3] = c
+        mgr.push(bases[i % len(bases)], m)
+    return mgr
+
+
+def surface_phase(phase, rt, dev, scene, mesh, rays):
+    """The accel protocol, the transport records and the IO on the card:
+    both accels on the contract scene (they must agree); trace_closest_hits
+    on the 256-instance StaticTLAS against the oracle on the world soup;
+    save_scene/load_scene of the 1M headline DenseScene (tables and the
+    headline query bit for bit); load_obj (native) of the headline mesh
+    written as OBJ with %.9g, and build_dense on it (tables bit for
+    bit)."""
+    import os
+    import tempfile
+    xs = torch.linspace(-1.5, 4.0, 256, device=dev)
+    X, Y = torch.meshgrid(xs, torch.linspace(-1.2, 1.2, 128, device=dev),
+                          indexing="ij")
+    co = torch.stack([X, Y, torch.full_like(X, -4.0)], -1).reshape(-1, 3)
+    cd = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(co).contiguous()
+    crays = rt.Ray.create(co, cd)
+    meshes = (rt.sphere_mesh(radius=1.0, n_theta=12, n_phi=24, device=dev),
+              rt.box_mesh(p_min=(-0.5, -0.5, -0.5), p_max=(0.5, 0.5, 0.5),
+                          device=dev))
+    tl = fill_contract(rt.TLASAccel(device=dev), meshes)
+    br = fill_contract(rt.BruteAccel(device=dev), meshes)
+    a, b = tl.closest_hit(crays), br.closest_hit(crays)
+    soup = br.sync()[0]
+    # The TLAS names a BLAS's sorted prim; its metadata (the face index,
+    # ascending in each mesh) finds the row of the brute soup.
+    n0 = meshes[0].vertices.shape[0]
+    inst = a.instance_idx.long().clamp_min(0)
+    local = torch.where(
+        inst == 0, torch.searchsorted(meshes[0].metadata, a.triangle.metadata),
+        n0 + torch.searchsorted(meshes[1].metadata, a.triangle.metadata))
+    c_both, c_tie, c_bad = instanced_check(
+        "TLASAccel vs BruteAccel", b, a, b.prim_idx.long().where(b.hit, -1),
+        torch.where(a.hit, local, -1), soup, co, cd)
+    if not torch.equal(a.instance_idx[a.hit & b.hit],
+                       b.instance_idx[a.hit & b.hit]):
+        raise AssertionError("the accels name different instances")
+    occ_t, occ_b = tl.any_hit(crays), br.any_hit(crays)
+    if not (torch.equal(occ_t.hit, a.hit) and torch.equal(occ_b.hit, b.hit)):
+        raise AssertionError("an accel's any_hit mask differs from its "
+                             "closest_hit's")
+    if tl.wait_for_gpu() is not tl or br.wait_for_gpu() is not br:
+        raise AssertionError("wait_for_gpu is not chainable")
+    say(phase, f"TLASAccel and BruteAccel on the contract scene, {co.shape[0]}"
+               f" rays: {c_both} both hit, {c_tie} ties, {c_bad} "
+               f"disagreements at an edge; equal instances; any_hit masks "
+               f"equal to closest_hit's; world bounds "
+               f"{np.asarray(tl.world_bound()).tolist()} / "
+               f"{np.asarray(br.world_bound()).tolist()}")
+
+    mgr = instanced_tlas(rt, dev)
+    static = mgr.sync()
+    io_, id_ = instanced_frame_rays(INSTANCED_SIDE, dev)
+    sub = slice(None, None, INSTANCED_TRAVERSAL_STRIDE)
+    trays = rt.RTRay.from_rays(rt.Ray.create(io_[sub].contiguous(),
+                                             id_[sub].contiguous()))
+    tr_res, tr_ms = timed_call(lambda: rt.trace_closest_hits(static, trays))
+    n = trays.origin.shape[0]
+    if trays.pack().shape != (n, 8):
+        raise AssertionError("RTRay.pack has the wrong shape")
+    soup, _ = rt.flatten_world_triangles(mgr)
+    n_real = torch.tensor([mgr._blas[r.blas_slot].n_prims
+                           for r in mgr._instances], device=dev)
+    soup_off = torch.cumsum(n_real, 0) - n_real
+    idx = torch.as_tensor(np.random.default_rng(SEED + phase).choice(
+        n, min(4096, n), replace=False), device=dev)
+    so, sd = trays.origin[idx], trays.direction[idx]
+    oracle = rt.closest_hit_brute(soup, rt.Ray.create(so, sd))
+    got = SimpleNamespace(hit=tr_res.hit[idx], t=tr_res.t[idx])
+    got_rows = torch.where(got.hit, soup_off[tr_res.instance_id[idx].long()
+                                             .clamp_min(0)]
+                           + tr_res.primitive_id[idx].long(), -1)
+    t_both, t_tie, t_bad = instanced_check(
+        "trace_closest_hits vs oracle", oracle, got,
+        oracle.prim_idx.long().where(oracle.hit, -1), got_rows, soup, so, sd)
+    meta = soup.metadata[got_rows.clamp_min(0)]
+    custom_ok = torch.equal(tr_res.instance_custom_index[idx],
+                            torch.where(got.hit, meta, 0))
+    if not custom_ok:
+        raise AssertionError("trace_closest_hits: instance_custom_index is "
+                             "not the hit triangle's metadata")
+    say(phase, f"trace_closest_hits on the {INSTANCED_COUNT}-instance "
+               f"StaticTLAS, {n} rays: {tr_ms:.1f} ms ({n / tr_ms / 1e3:.4f} "
+               f"Mrays/s); {idx.numel()}-ray sample vs the oracle on "
+               f"{soup.vertices.shape[0]} world triangles: {t_both} both "
+               f"hit, {t_tie} ties, {t_bad} disagreements at an edge; "
+               f"instance_custom_index is the hit triangle's metadata "
+               f"(instance_id 0 inherits)")
+    del mgr, static, soup
+
+    tables = ("tri_feats", "cluster_min", "cluster_max", "sub_bounds",
+              "prims_hot", "root_aabb")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "headline.npz")
+        _, save_s = timed_call(lambda: rt.save_scene(path, scene))
+        size = os.path.getsize(path)
+        loaded, load_s = timed_call(lambda: rt.load_scene(path, device=dev))
+        for k in tables:
+            if not torch.equal(getattr(loaded, k), getattr(scene, k)):
+                raise AssertionError(f"load_scene: {k} differs")
+        for k in ("vertices", "normals", "tangents", "uv", "metadata"):
+            if not torch.equal(getattr(loaded.prims, k),
+                               getattr(scene.prims, k)):
+                raise AssertionError(f"load_scene: prims.{k} differs")
+        want, got = rt.closest_hit(scene, rays), rt.closest_hit(loaded, rays)
+        for k in ("hit", "t", "prim_idx", "instance_idx", "barycentric"):
+            if not torch.equal(getattr(got, k), getattr(want, k)):
+                raise AssertionError(f"the loaded scene's headline query "
+                                     f"differs in {k}")
+        del loaded, want, got
+        say(phase, f"save_scene of the headline DenseScene: {size / 1e6:.1f}"
+                   f" MB in {save_s / 1e3:.2f} s; load_scene {load_s / 1e3:.2f}"
+                   f" s; tables and prims bit for bit, the headline query "
+                   f"(rt.closest_hit) on the loaded scene bit for bit with "
+                   f"the built scene's")
+
+        obj = os.path.join(tmp, "headline.obj")
+        v = mesh.vertices.reshape(-1, 3).cpu().numpy()
+        t = time.perf_counter()
+        with open(obj, "w") as f:
+            f.write(("v %.9g %.9g %.9g\n" * v.shape[0])
+                    % tuple(v.ravel().tolist()))
+            f.write(("f %d %d %d\n" * (v.shape[0] // 3))
+                    % tuple(range(1, v.shape[0] + 1)))
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        tris = rt.load_obj(obj, native=True, device=dev)
+        torch.cuda.synchronize()
+        parse_s = time.perf_counter() - t
+        if not torch.equal(tris.vertices, mesh.vertices):
+            raise AssertionError("load_obj: vertices differ from the mesh's")
+        built = rt.build_dense(tris, cluster_size=scene.cluster_size)
+        for k in tables:
+            if not torch.equal(getattr(built, k), getattr(scene, k)):
+                raise AssertionError(f"build_dense on the loaded OBJ: {k} "
+                                     f"differs")
+        say(phase, f"load_obj (native) of the headline mesh as OBJ "
+                   f"({os.path.getsize(obj) / 1e6:.1f} MB, written in "
+                   f"{write_s:.2f} s): {parse_s:.2f} s; build_dense on it "
+                   f"gives the headline's tables bit for bit")
+
+
+def classifier_phase(phase, rt, scene, o, d):
+    """The two-phase classifier on the headline: CLASSIFIER_TILES tiles of
+    2048 rays drawn with a seed, each against every cluster its phase-A
+    entry keeps, at bf16 (classify_block: both operands rounded to
+    bfloat16, summed in float32) and at bf16x3 (three bf16 products of
+    split operands, classify with EPS_BF16X3). Sound against float64
+    truth on the same float32 features: no truly accepted candidate
+    rejected, no certain candidate truly rejected, certain t intervals
+    bracketing the exact t, and every ray that ray_verdict does not call
+    ambiguous naming the exact winner. Reports the share of ambiguous
+    rays (the census number) in each mode."""
+    from raycore_tpu_torch.accel.dense import _first_argmin, ray_features
+    from raycore_tpu_torch.ops import dense as ops_dense
+    from raycore_tpu_torch.ops import two_phase as tp
+    TILE, C = 2048, scene.cluster_size
+    po, pd, ptmin, ptmax = ops_dense.pad_rays(o, d, torch.zeros_like(o[:, 0]),
+                                              torch.full_like(o[:, 0],
+                                                              float("inf")),
+                                              TILE)
+    n_tiles = po.shape[0] // TILE
+    entry = ops_dense.phase_a_entry(scene, po, pd, ptmin, ptmax, n_tiles,
+                                    TILE)
+    tiles = np.random.default_rng(SEED + phase).choice(
+        n_tiles, CLASSIFIER_TILES, replace=False)
+    bf = tp._bf16
+    e = tp.EDGE_EPS
+    counts = {m: dict(amb=0, decided=0) for m in ("bf16", "bf16x3")}
+    rays = cands = 0
+    t0 = time.perf_counter()
+    for tile in tiles.tolist():
+        rows = slice(tile * TILE, (tile + 1) * TILE)
+        cids = torch.nonzero(torch.isfinite(entry[tile])).squeeze(1)
+        phi = ray_features(po[rows], pd[rows])
+        feats = scene.tri_feats[cids]                     # (n_c, 16, 4C)
+        n_c = cids.numel()
+        tmin = ptmin[rows]
+        tmax = ptmax[rows]
+        q64 = torch.einsum("rf,kfq->rkq", phi.double(), feats.double())
+        det = q64[..., :C]
+        u, v, t = (q64[..., k * C:(k + 1) * C] / det for k in (1, 2, 3))
+        acc = ((u >= -e) & (u <= 1 + e) & (v >= -e) & (u + v <= 1 + e)
+               & (t >= tmin[:, None, None]) & (t <= tmax[:, None, None])
+               & (det != 0)).reshape(TILE, -1)
+        t_acc = torch.where(acc, t.reshape(TILE, -1), float("inf"))
+        exact_hit = torch.isfinite(t_acc.amin(1))
+        exact_best = _first_argmin(t_acc)
+        keys = (cids[:, None] * C + torch.arange(C, device=o.device)).reshape(
+            -1).expand(TILE, -1).to(torch.int32)
+        for mode in ("bf16", "bf16x3"):
+            if mode == "bf16":
+                outs = [tp.classify_block(phi, feats[k], tmin, tmax, C)
+                        for k in range(n_c)]
+                cls = [torch.stack([x[i] for x in outs], 1).reshape(TILE, -1)
+                       for i in range(4)]
+            else:
+                f2 = feats.permute(1, 0, 2).reshape(feats.shape[1], -1)
+                ah, bh = bf(phi), bf(f2)
+                al, bl = bf(phi - ah), bf(f2 - bh)
+                q = ah @ bh + ah @ bl + al @ bh
+                s = bf(phi.abs()) @ bf(f2.abs())
+                cls = [x.reshape(TILE, -1) for x in tp.classify(
+                    q.reshape(TILE, n_c, 4 * C), s.reshape(TILE, n_c, 4 * C),
+                    tmin[:, None, None], tmax[:, None, None], C,
+                    eps=tp.EPS_BF16X3)]
+            certain, possible, t_lo, t_hi = cls
+            tt = t.reshape(TILE, -1)
+            if bool((acc & ~possible).any()) or bool((certain & ~acc).any()):
+                raise AssertionError(f"classifier ({mode}): unsound on tile "
+                                     f"{tile}")
+            ct = certain & acc
+            if bool((t_lo.double()[ct] > tt[ct]).any()) or bool(
+                    (t_hi.double()[ct] < tt[ct]).any()):
+                raise AssertionError(f"classifier ({mode}): a certain t "
+                                     f"interval misses the exact t")
+            _, winner, amb = tp.ray_verdict(certain, possible, t_lo, t_hi,
+                                            keys)
+            ok = ~amb
+            w = ok & exact_hit
+            if not torch.equal(winner[w].long(),
+                               keys[0].long()[exact_best[w]]) or bool(
+                    (ok & ~exact_hit & (winner >= 0)).any()):
+                raise AssertionError(f"classifier ({mode}): a decided ray "
+                                     f"names another winner than the exact "
+                                     f"test")
+            counts[mode]["amb"] += int(amb.sum())
+            counts[mode]["decided"] += int(((~possible) | certain).sum())
+        rays += TILE
+        cands += TILE * n_c * C
+    desc = "; ".join(
+        f"{m}: {c['amb']} ambiguous rays ({c['amb'] / rays:.4f}), "
+        f"{c['decided'] / cands:.4f} of candidates decided"
+        for m, c in counts.items())
+    say(phase, f"classifier on {len(tiles)} headline tiles ({rays} rays, "
+               f"{cands} (ray, triangle) candidates from phase A's finite "
+               f"entries, {cands / rays:.0f} a ray): sound against float64 "
+               f"truth, every decided ray names the exact winner; {desc}; "
+               f"{time.perf_counter() - t0:.1f} s")
+
+
+def sharding_phase(phase, rt, dev, o, d, head, diag):
+    """Ray sharding in SHARD_RANKS gloo ranks on the one card, spawned by
+    ``python -m raycore_tpu_torch.parallel.dryrun`` (NCCL takes one rank
+    a card): distributed_closest_hit_dense on the 1M headline (2^19 rays
+    a rank, each rank K1 and K2 once on its first call), its gathered
+    result against phase 6's single-process regrouped query under the
+    contract; distributed_illumination and distributed_closest_hit on
+    the dry run's two-instance StaticTLAS, the histogram and the hits
+    equal to the single-process query's. Two ranks on one card share its
+    SMs: their times say nothing about scaling."""
+    import json
+    import os
+    import tempfile
+    from raycore_tpu_torch.parallel.dryrun import small_scene
+    tlas = small_scene(dev)
+    n_bins = int(tlas.prims.metadata.shape[0])
+    xs = np.linspace(-1.5, 4.5, 64, dtype=np.float32)
+    X, Y = np.meshgrid(xs, np.linspace(-1.5, 1.5, 64, dtype=np.float32),
+                       indexing="ij")
+    to = np.stack([X, Y, np.full_like(X, -4.0)], -1).reshape(-1, 3)
+    td = np.broadcast_to(np.float32([0, 0, 1]), to.shape).copy()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/headline.npz", o=o.cpu().numpy(), d=d.cpu().numpy())
+        np.savez(f"{tmp}/tlas.npz", o=to, d=td)
+        headline = {"dense": "displaced_grid_mesh", "kw": HEADLINE_MESH,
+                    "cluster_size": HEADLINE_C}
+        cases = [
+            {"name": "dense", "fn": "closest_hit_dense", "scene": headline,
+             "rays": f"{tmp}/headline.npz", "reps": 3,
+             "kwargs": {"tile": 2048, "subgroup": 32, "spb": 16}},
+            {"name": "illumination", "fn": "illumination",
+             "scene": {"small_tlas": True}, "rays": f"{tmp}/tlas.npz",
+             "kwargs": {"n_bins": n_bins, "tile_size": 4096}},
+            {"name": "closest_hit", "fn": "closest_hit",
+             "scene": {"small_tlas": True}, "rays": f"{tmp}/tlas.npz",
+             "kwargs": {"tile_size": 4096}}]
+        with open(f"{tmp}/cases.json", "w") as f:
+            json.dump(cases, f)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        subprocess.run([sys.executable, "-m",
+                        "raycore_tpu_torch.parallel.dryrun", "--ranks",
+                        str(SHARD_RANKS), "--device", str(dev),
+                        "--workdir", tmp, "--cases", f"{tmp}/cases.json"],
+                       check=True, timeout=SHARD_TIMEOUT_S,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t
+        outs = torch.load(f"{tmp}/outputs.pt", weights_only=False)
+    per_rank = [o_["dense"]["launches"] for o_ in outs]
+    if any(l != {"phase_a": 1, "regroup_sweep": 1} for l in per_rank):
+        raise AssertionError(f"sharded dense query: launches per rank "
+                             f"{per_rank}, expected K1 and K2 once each")
+    out = outs[0]["dense"]
+    got = SimpleNamespace(
+        hit=torch.as_tensor(out["hit"], device=dev),
+        t=torch.as_tensor(out["t"], device=dev),
+        prim_idx=torch.as_tensor(out["prim_idx"], device=dev))
+    ref = SimpleNamespace(hit=head[0], t=head[1], prim_idx=head[2])
+    n_both, n_tie, _, _ = check_hits(ref, got, "sharded vs single process",
+                                     edge=diag, tie=2e-6)
+    same = int(((got.hit == ref.hit) & (got.t == ref.t)
+                & (got.prim_idx == ref.prim_idx)).sum())
+    for o_ in outs[1:]:
+        if not all(np.array_equal(o_["dense"][k], out[k])
+                   for k in ("hit", "t", "prim_idx")):
+            raise AssertionError("the ranks hold different gathered results")
+    tres = rt.closest_hit(tlas, rt.Ray.create(torch.as_tensor(to, device=dev),
+                                              torch.as_tensor(td,
+                                                              device=dev)))
+    idx = tres.triangle.metadata.to(torch.int32).clamp(0, n_bins - 1).long()
+    hist = torch.zeros(n_bins, device=dev).index_add_(0, idx,
+                                                      tres.hit.float())
+    if not np.array_equal(outs[0]["illumination"]["hist"], hist.cpu().numpy()):
+        raise AssertionError("sharded histogram differs from the single "
+                             "process's")
+    ch = outs[0]["closest_hit"]
+    n_t = to.shape[0]
+    if not (np.array_equal(ch["hit"][:n_t], tres.hit.cpu().numpy())
+            and np.array_equal(ch["t"][:n_t], tres.t.cpu().numpy())):
+        raise AssertionError("sharded closest_hit differs from the single "
+                             "process's")
+    fmt = lambda xs: " ".join(f"{x:.1f}" for x in xs)
+    say(phase, f"{SHARD_RANKS} gloo ranks on one card, {o.shape[0]} headline "
+               f"rays ({o.shape[0] // SHARD_RANKS} a rank): launches per "
+               f"rank {per_rank}; calls (the first replicates the scene) "
+               + "; ".join(f"rank {o_['dense']['rank']} {fmt(o_['dense']['ms'])}"
+                           f" ms, replicate {o_['dense']['replicate_ms']:.1f}"
+                           f" ms" for o_ in outs)
+               + f"; vs the single-process regrouped query {n_both} both "
+               f"hit, {n_tie} prim ties, {same} rows bit for bit; "
+               f"illumination histogram ({n_bins} bins, "
+               f"{int(hist.sum())} hits) and closest_hit on {n_t} rays "
+               f"equal to the single process's; subprocess wall {wall:.1f} "
+               f"s. Two ranks share one card: these times say nothing about "
+               f"scaling")
 
 
 if __name__ == "__main__":

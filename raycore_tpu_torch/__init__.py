@@ -5,7 +5,7 @@ It keeps the JAX package's layout and function names. Entry points make
 their tensors on the CUDA card unless the caller passes ``device="cpu"``;
 tensors then stay on their device, and a kernel wrapper launches its CUDA
 kernel for CUDA tensors and runs the kernel's plain PyTorch version for
-CPU tensors. The ported slice:
+CPU tensors. It covers the JAX package's whole public surface:
 
 - the core math (rays, boxes, transforms, quaternions, triangles and
   their tests);
@@ -16,9 +16,15 @@ CPU tensors. The ported slice:
   worklist there), and the tile worklist (``closest_hit_dense_pallas*``,
   ``any_hit_dense_pallas_auto``) for smaller batches; plus the dense
   brute-force sweep for small meshes (``closest_hit_brute_pallas``);
+  and the reference's plain rounds engine, ``closest_hit_dense`` and
+  ``any_hit_dense`` (phase A on K1, then rounds of ``torch.bmm``), with
+  ``morton_sort_rays`` to make a batch coherent;
 - the two-level BVH: the LBVH build (``build_blas``), the mutable
   ``TLAS`` manager whose ``sync`` gives a ``StaticTLAS``, and the
-  traversal that ``closest_hit``/``any_hit`` run on it;
+  traversal that ``closest_hit``/``any_hit`` run on it; the BVH4 layer
+  (``build_blas4``, ``closest_hit4``, ``any_hit4``); the accel protocol
+  (``TLASAccel``, ``BruteAccel``) and the transport records (``RTRay``,
+  ``RTHitResult``, ``trace_closest_hits``, ``trace_any_hits``);
 - the instanced engine: ``bake_instanced`` turns a ``TLAS`` into a
   ``DenseInstancedScene``, ``refresh_instances`` follows its transforms
   each frame, and ``closest_hit``/``any_hit`` sweep it with K1 and K2's
@@ -31,7 +37,13 @@ CPU tensors. The ported slice:
   (``render/``), and the ray-grid, view-factor and collision analyses
   (``analysis/``). They reach the card only through ``closest_hit`` and
   ``any_hit``. Where the JAX package takes a PRNG key they take a
-  ``torch.Generator`` (None: one seeded 0 on the scene's device).
+  ``torch.Generator`` (None: one seeded 0 on the scene's device);
+- scene files (``save_scene``/``load_scene``, the JAX package's ``.npz``
+  format) and OBJ loading (``load_obj``);
+- the two-phase interval classifier (``ops/two_phase.py``);
+- ray sharding over ``torch.distributed`` (``sharding``: the scene
+  replicated, rays sharded, results gathered on every rank) and its dry
+  run in gloo ranks (``parallel/dryrun.py``).
 
 ``raycore_tpu_torch.tools`` holds the card probes, the counterparts of the
 repository's TPU measurement tools (P1-P4): each is a hand-written kernel
@@ -59,7 +71,13 @@ from .accel.brute import HitResult, any_hit_brute, closest_hit_brute
 from .accel.types import (BLAS, INVALID_NODE, TOP_LEVEL_SENTINEL, Instances,
                           StaticTLAS)
 from .accel.lbvh import build_blas, karras_topology, refit_aabbs
-from .accel.dense import DenseScene, build_dense, depth_layers
+from .accel.dense import (DenseScene, any_hit_dense, build_dense,
+                          closest_hit_dense, depth_layers, morton_sort_rays)
+from .accel.wide import (BLAS4, TLAS4, any_hit4, build_blas4, closest_hit4,
+                         collapse_blas)
+from .accel.transport import (RTHitResult, RTRay, trace_any_hits,
+                              trace_closest_hits)
+from .accel.protocol import AbstractAccel, BruteAccel, TLASAccel
 from .accel.dispatch import has_warm_capacity, prewarm
 from .accel.dispatch import scene_any_hit as any_hit
 from .accel.dispatch import scene_closest_hit as closest_hit
@@ -72,6 +90,8 @@ from .ops.regroup import (any_hit_regrouped, auto_passes, closest_hit_packed,
 from .scene.tlas import (INVALID_HANDLE, TLAS, TLASHandle,
                          blas_to_static_tlas, instance_buffer, refit_tlas)
 from .scene.bake import bake_dense, flatten_world_triangles
+from .scene.obj import load_obj
+from .scene.io import load_scene, save_scene
 from .scene.instanced import (DenseInstancedScene, bake_instanced,
                               refresh_instances)
 from .scene.mesh import (blobby_mesh, box_mesh, build_triangle,
@@ -100,6 +120,7 @@ from .render.debug_viz import (RayIntersectionResult, ray_plot, save_png,
 from .utils.soa import (for_unrolled, map_unrolled, reduce_unrolled,
                         similar_soa, soa_get, soa_set, sum_unrolled,
                         switch_apply)
+from .parallel import sharding
 
 __all__ = [
     "Ray", "RayDifferentials", "apply", "check_direction", "increase_hit",
@@ -124,7 +145,12 @@ __all__ = [
     "instance_buffer", "refit_tlas", "bake_dense", "flatten_world_triangles",
     "DenseInstancedScene", "bake_instanced", "refresh_instances",
     "DenseScene",
-    "build_dense", "depth_layers", "closest_hit", "any_hit", "prewarm",
+    "build_dense", "depth_layers", "closest_hit_dense", "any_hit_dense",
+    "morton_sort_rays",
+    "BLAS4", "TLAS4", "build_blas4", "collapse_blas", "closest_hit4",
+    "any_hit4", "RTRay", "RTHitResult", "trace_closest_hits",
+    "trace_any_hits", "AbstractAccel", "TLASAccel", "BruteAccel",
+    "load_obj", "save_scene", "load_scene", "closest_hit", "any_hit", "prewarm",
     "has_warm_capacity", "closest_hit_regrouped", "any_hit_regrouped",
     "auto_passes", "closest_hit_packed", "closest_hit_dense_pallas",
     "closest_hit_dense_pallas_auto", "closest_hit_dense_pallas_topk",
@@ -146,4 +172,4 @@ __all__ = [
     "RayIntersectionResult", "trace_rays", "scene_preview", "ray_plot",
     "save_ppm", "save_png",
     "soa_get", "soa_set", "similar_soa", "for_unrolled", "map_unrolled",
-    "reduce_unrolled", "sum_unrolled", "switch_apply"]
+    "reduce_unrolled", "sum_unrolled", "switch_apply", "sharding"]

@@ -1,8 +1,9 @@
-"""Dense clustered scene: build and exact finalize (counterpart of
-``raycore_tpu/accel/dense.py``, partial: ``DenseScene``, the build,
-``gather_hit_payload``, ``finalize_hits_exact`` and ``depth_layers``,
-plus ``prim_only_hits``, the payload-free result of the occlusion and
-slim queries).
+"""Dense clustered scene: the build, the finalizes and the rounds engine
+(counterpart of ``raycore_tpu/accel/dense.py``): ``DenseScene``,
+``build_dense``, ``gather_hit_payload``, ``finalize_hits``,
+``finalize_hits_exact``, ``depth_layers``, ``closest_hit_dense``,
+``any_hit_dense`` and ``morton_sort_rays``, plus ``prim_only_hits``, the
+payload-free result of the occlusion and slim queries.
 
 Build: triangles are sorted spatially and cut into clusters of C
 consecutive triangles. Each triangle is *featurized*: every Möller–Trumbore
@@ -16,6 +17,13 @@ quantity is a bilinear form in ray features and triangle features,
 so with ray features phi = [d, o x d, o, 1, ...] (16 wide) and a (16, 4C)
 per-cluster triangle matrix, all four quantities for a block of rays
 against one cluster are one small matrix product (ops/regroup.py).
+
+The rounds engine (``closest_hit_dense``) is the reference's plain-XLA
+query: phase A's (tile, cluster) entry matrix from kernel K1
+(``ops/dense.py:phase_a_entry``), then rounds that each pick the S
+untested clusters of smallest entry per tile, test the tile's rays
+against them in one ``torch.bmm`` per group of tiles, and keep each ray's
+nearest hit, until no untested cluster can beat a tile's farthest best.
 """
 from __future__ import annotations
 
@@ -26,11 +34,15 @@ import torch
 
 from ..core.triangle import Triangle, cross, dot3, safe_invdir
 from .brute import HitResult
-from .types import PAD_COORD, f32_as_i32, i32_as_f32, next_pow2
+from .types import (PAD_COORD, f32_as_i32, flush_denormals, i32_as_f32,
+                    next_pow2)
 
 FEAT = 16
-# The smallest normal float32; smaller magnitudes are denormal.
-_FLT_MIN = 2.0 ** -126
+EDGE_EPS = 1e-5   # barycentric acceptance slack of the featurized test
+# The rounds engine's product per group of tiles: at most this many
+# float32 elements (512 MiB). Tiles are independent, so the group size
+# bounds memory and never changes a result.
+ROUND_GROUP_ELEMS = 1 << 27
 
 
 @dataclasses.dataclass
@@ -155,7 +167,7 @@ def _featurize_tris(v0, v1, v2):
     psi[:, 3:6, 2] = -e1
     psi[:, 6:9, 3] = n                       # t*det = o . n - v0 . n
     psi[:, 9, 3] = -dot3(v0, n)
-    return torch.where(psi.abs() < _FLT_MIN, psi * 0.0, psi)
+    return flush_denormals(psi)
 
 
 def ray_features(o, d):
@@ -399,3 +411,182 @@ def finalize_hits_exact(scene: DenseScene, pair, t_approx, o, d) -> HitResult:
     return HitResult(hit=hit, triangle=tri, t=torch.where(hit, t, 0.0),
                      barycentric=bary, prim_idx=orig,
                      instance_idx=_hit_instance_idx(scene, orig, hit))
+
+
+def finalize_hits(scene: DenseScene, pair, t, u, v) -> HitResult:
+    """HitResult from the rounds engine's raw bests: the winner's payload
+    gathered, t and the barycentric from the featurized test itself."""
+    hit = (pair >= 0) & torch.isfinite(t)
+    tri, orig = gather_hit_payload(scene, pair.clamp_min(0), hit)
+    bary = torch.where(hit[:, None], torch.stack([1 - u - v, u, v], -1), 0.0)
+    return HitResult(hit=hit, triangle=tri, t=torch.where(hit, t, 0.0),
+                     barycentric=bary, prim_idx=orig,
+                     instance_idx=_hit_instance_idx(scene, orig, hit))
+
+
+# ---------------------------------------------------------------------------
+# The rounds engine
+# ---------------------------------------------------------------------------
+
+def _first_argmin(x):
+    """Index of the first minimum along the last axis, as ``jnp.argmin``
+    picks it (``torch.argmin`` does not promise the first index on CUDA).
+    A row of +inf picks 0."""
+    cols = torch.arange(x.shape[-1], device=x.device)
+    hit = x == x.amin(dim=-1, keepdim=True)
+    return torch.where(hit, cols, x.shape[-1]).amin(dim=-1)
+
+
+def _epilogue(q, t_min, cur_best, C: int, sub_chunks: int = 4):
+    """(t or +inf, u, v) per (row, triangle) from the quantity block q
+    (R, 4C), sub-chunk-major; columns come out in the cluster's triangle
+    order. ``fast_intersect_triangle``'s semantics with the EDGE_EPS
+    barycentric slack of the featurized test, and t within
+    [t_min, cur_best]."""
+    R = q.shape[0]
+    qs = q.reshape(R, sub_chunks, 4, C // sub_chunks)
+    det, udet, vdet, tdet = (qs[:, :, k].reshape(R, C) for k in range(4))
+    r = 1.0 / det
+    u = udet * r
+    v = vdet * r
+    t = tdet * r
+    e = EDGE_EPS
+    ok = (u >= -e) & (u <= 1.0 + e) & (v >= -e) & (u + v <= 1.0 + e) \
+        & (t >= t_min[:, None]) & (t <= cur_best[:, None])
+    return torch.where(ok, t, float("inf")), u, v
+
+
+def _round_group(scene: DenseScene, phi_g, cids_g, bt, bp, bu, bv, tmin_g):
+    """One round on a group of TG tiles: test each tile's rays against its
+    S picked clusters in one product, and replace a ray's best where the
+    first of the nearest accepted hits is strictly nearer."""
+    TG, tile, _ = phi_g.shape
+    S = cids_g.shape[1]
+    C = scene.cluster_size
+    blocks = scene.tri_feats[cids_g.reshape(-1)] \
+        .reshape(TG, S, FEAT, 4 * C).permute(0, 2, 1, 3) \
+        .reshape(TG, FEAT, S * 4 * C)
+    q = torch.bmm(phi_g, blocks)                        # (TG, tile, S*4C)
+    t_pair, u, v = _epilogue(q.reshape(-1, 4 * C),
+                             tmin_g.reshape(-1).repeat_interleave(S),
+                             bt.reshape(-1).repeat_interleave(S), C,
+                             scene.sub_chunks)
+    t_pair = t_pair.reshape(TG, tile, S * C)
+    arg = _first_argmin(t_pair)                         # (TG, tile)
+    take = lambda a: a.reshape(TG, tile, S * C).gather(
+        2, arg[..., None])[..., 0]
+    tmin_c = take(t_pair)
+    better = tmin_c < bt
+    pair_id = cids_g.gather(1, arg // C) * C + arg % C
+    return (torch.where(better, tmin_c, bt),
+            torch.where(better, pair_id.to(torch.int32), bp),
+            torch.where(better, take(u), bu),
+            torch.where(better, take(v), bv))
+
+
+def _closest_hit_dense_flat(scene: DenseScene, o, d, t_min, t_max, *,
+                            tile: int, select_per_round: int,
+                            max_rounds: int):
+    """The rounds on padded rows (R a multiple of ``tile``). Returns the
+    raw bests (pair int32, t, u, v) of each row and the rounds taken.
+
+    Each round picks per tile the S = ``select_per_round`` clusters of
+    smallest entry by a repeated first-index argmin, setting each pick to
+    +inf; a tile with no finite entry left picks cluster 0 again and
+    again, as the reference does. The loop asks the host once a round
+    whether any tile still has an untested cluster whose entry is below
+    its farthest best t."""
+    from ..ops.dense import phase_a_entry
+    R = o.shape[0]
+    C = scene.cluster_size
+    S = select_per_round
+    n_tiles = R // tile
+    dev = o.device
+    entry = phase_a_entry(scene, o, d, t_min, t_max, n_tiles, tile)  # K1
+    phi = ray_features(o, d).reshape(n_tiles, tile, FEAT)
+    tmin_t = t_min.reshape(n_tiles, tile)
+    best_t = t_max.reshape(n_tiles, tile).clone()
+    best_pair = torch.full((n_tiles, tile), -1, dtype=torch.int32,
+                           device=dev)
+    best_u = torch.zeros((n_tiles, tile), dtype=torch.float32, device=dev)
+    best_v = torch.zeros_like(best_u)
+    tiles = torch.arange(n_tiles, device=dev)
+    TG = max(1, min(n_tiles, ROUND_GROUP_ELEMS // (tile * S * 4 * C)))
+    rounds = 0
+    while rounds < max_rounds and bool(
+            (entry < best_t.amax(dim=1, keepdim=True)).any()):
+        sel = []
+        for _ in range(S):
+            cid = _first_argmin(entry)
+            sel.append(cid)
+            entry[tiles, cid] = float("inf")
+        cids = torch.stack(sel, dim=1)                  # (n_tiles, S)
+        for g in range(0, n_tiles, TG):
+            s = slice(g, g + TG)
+            best_t[s], best_pair[s], best_u[s], best_v[s] = _round_group(
+                scene, phi[s], cids[s], best_t[s], best_pair[s], best_u[s],
+                best_v[s], tmin_t[s])
+        rounds += 1
+    flat = lambda a: a.reshape(R)
+    return (flat(best_pair), flat(best_t), flat(best_u), flat(best_v),
+            rounds)
+
+
+def _dense_query(scene: DenseScene, rays, *, tile: int, select_per_round: int,
+                 max_rounds: int):
+    """Flatten, pad to whole tiles (``ops/dense.py:pad_rays``), run the
+    rounds and finalize. Returns (HitResult of the flat rows, rounds)."""
+    from ..ops.dense import flat_rays, pad_rays
+    o, d, t_min, t_max = flat_rays(rays)
+    R = o.shape[0]
+    tile = min(tile, max(R, 8))
+    po, pd, ptmin, ptmax = pad_rays(o, d, t_min, t_max, tile)
+    pair, t, u, v, rounds = _closest_hit_dense_flat(
+        scene, po, pd, ptmin, ptmax, tile=tile,
+        select_per_round=select_per_round, max_rounds=max_rounds)
+    return finalize_hits(scene, pair[:R], t[:R], u[:R], v[:R]), rounds
+
+
+def closest_hit_dense(scene: DenseScene, rays, *, tile: int = 2048,
+                      select_per_round: int = 4,
+                      max_rounds: int = 1024) -> HitResult:
+    """Exact closest hit via the rounds engine, on the scene's device;
+    phase A launches kernel K1 on CUDA tensors. Rays should be spatially
+    coherent in batch order (primary grids are; sort an incoherent batch
+    with ``morton_sort_rays`` first). t and the barycentric come from the
+    featurized test, not from an exact recompute."""
+    batch = rays.batch_shape
+    res, _ = _dense_query(scene, rays, tile=tile,
+                          select_per_round=select_per_round,
+                          max_rounds=max_rounds)
+    return res.map(lambda a: a.reshape(batch + tuple(a.shape[1:])))
+
+
+def any_hit_dense(scene: DenseScene, rays, **kw) -> HitResult:
+    """Occlusion on the rounds engine: ``closest_hit_dense`` with t_min
+    forced to 0; only the hit mask is the occlusion contract."""
+    rays0 = dataclasses.replace(rays, t_min=torch.zeros_like(rays.t_min))
+    return closest_hit_dense(scene, rays0, **kw)
+
+
+def morton_sort_rays(rays, bounds_min, bounds_max):
+    """Sort a flat ray batch by the Morton code of its origin in the box
+    [bounds_min, bounds_max] with its direction's octant on top, so the
+    rounds engine's tiles become compact. Returns (sorted rays, inverse
+    permutation); ``result.map(lambda a: a[inv])`` restores the caller's
+    order. The uint32 key ``(code >> 3) | (octant << 29)`` is built in
+    int64 and sorted stably, as ``jnp.argsort`` sorts."""
+    from .morton import morton_code_30bit
+    o, d = rays.o, rays.d
+    lo = torch.as_tensor(bounds_min, dtype=torch.float32, device=o.device)
+    hi = torch.as_tensor(bounds_max, dtype=torch.float32, device=o.device)
+    ext = torch.clamp_min(hi - lo, 1e-12)
+    code = morton_code_30bit((o - lo) / ext)
+    pos = (d > 0).to(torch.int64)
+    oct_d = pos[:, 0] | (pos[:, 1] << 1) | (pos[:, 2] << 2)
+    key = (code >> 3) | (oct_d << 29)
+    order = torch.argsort(key, stable=True)
+    inv = torch.argsort(order, stable=True)
+    sorted_rays = type(rays)(**{f.name: getattr(rays, f.name)[order]
+                                for f in dataclasses.fields(rays)})
+    return sorted_rays, inv

@@ -20,8 +20,8 @@ import torch
 
 from ..core.triangle import Triangle
 from . import morton as _morton
-from .types import (BLAS, INVALID_NODE, PAD_COORD, f32_as_i32, next_pow2,
-                    pad_triangles)
+from .types import (BLAS, INVALID_NODE, PAD_COORD, f32_as_i32,
+                    flush_denormals, next_pow2, pad_triangles)
 
 # Depth bound of a Karras radix tree over 30-bit codes with the index
 # tiebreak: a root-to-leaf path has strictly increasing common prefixes,
@@ -131,7 +131,10 @@ def refit_aabbs(child0, child1, leaf_min, leaf_max, n_passes=None):
 
 
 def _tri_bounds(vertices):
-    return vertices.amin(dim=-2), vertices.amax(dim=-2)
+    """Per-triangle AABBs, denormal bounds flushed to zero as the
+    reference's reductions flush them (T9)."""
+    return (flush_denormals(vertices.amin(dim=-2)),
+            flush_denormals(vertices.amax(dim=-2)))
 
 
 def _normalize_centroids(centers, scene_min, scene_max):

@@ -45,6 +45,17 @@ def f32_as_i32(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32)
 
 
+# The smallest normal float32; smaller magnitudes are denormal.
+FLT_MIN = 2.0 ** -126
+
+
+def flush_denormals(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with each denormal float32 replaced by a zero of its sign, as
+    XLA's float32 arithmetic on the CPU and the TPU flushes its results
+    (ROADMAP T9); the reference's min/max reductions of bounds do too."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
 def next_pow2(n: int) -> int:
     n = max(int(n), 2)
     return 1 << (n - 1).bit_length()

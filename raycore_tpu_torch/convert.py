@@ -3,11 +3,11 @@ renderers' state (materials, lights, camera, texture pool, a static
 MultiTypeSet) across as NumPy arrays.
 
 The dict form of a scene is what ``np.asarray`` gives for each field of a
-``DenseScene``, ``BLAS``, ``StaticTLAS`` or ``DenseInstancedScene`` from
-either package (the fields of its ``prims`` and ``instances`` flattened
-into the same dict), so a scene built by one package can be queried by
-the other. Every function puts its tensors on ``device``, the CUDA card
-by default.
+``DenseScene``, ``BLAS``, ``BLAS4``, ``StaticTLAS`` or
+``DenseInstancedScene`` from either package (the fields of its ``prims``
+and ``instances`` flattened into the same dict), so a scene built by one
+package can be queried by the other. Every function puts its tensors on
+``device``, the CUDA card by default.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from .accel.dense import DenseScene
 from .accel.types import BLAS, Instances, StaticTLAS
+from .accel.wide import BLAS4
 from .collections.multitypeset import StaticMultiTypeSet, TexturePool
 from .core.bounds import Bounds2, Bounds3
 from .core.device import default_device
@@ -109,6 +110,18 @@ def blas_from_numpy(d: dict, device=None) -> BLAS:
                 root_aabb=_tensor(np.asarray(d["root_aabb"], np.float32),
                                   device),
                 n_prims=int(d["n_prims"]), capacity=int(d["capacity"]))
+
+
+def blas4_from_numpy(d: dict, device=None) -> BLAS4:
+    """BLAS4 from a dict of NumPy arrays: ``nodes4`` (int32),
+    ``root_aabb``, the five prim fields and the ints ``n_prims`` and
+    ``capacity``."""
+    device = default_device(device)
+    return BLAS4(nodes4=_tensor(np.asarray(d["nodes4"], np.int32), device),
+                 prims=_prims(d, device),
+                 root_aabb=_tensor(np.asarray(d["root_aabb"], np.float32),
+                                   device),
+                 n_prims=int(d["n_prims"]), capacity=int(d["capacity"]))
 
 
 def static_tlas_from_numpy(d: dict, device=None) -> StaticTLAS:

@@ -29,14 +29,14 @@ from __future__ import annotations
 import torch
 
 from ..accel.brute import HitResult
-from ..accel.dense import finalize_hits_exact, prim_only_hits, ray_features
+from ..accel.dense import (EDGE_EPS, finalize_hits_exact, prim_only_hits,
+                           ray_features)
 from ..core.triangle import INV_DIR_CLAMP, fma, safe_invdir
 from ..kernels import _build
 
 FEAT = 16
 INT32_MAX = 0x7FFFFFFF
 INT32_MIN = -0x80000000
-EDGE_EPS = 1e-5   # barycentric acceptance slack of the featurized test
 # The plain sweeps' product chunk: 2^27 float32 elements (512 MiB).
 PLAIN_CHUNK_ELEMS = 1 << 27
 # The feature rows that the sweep kernels' fused multiply-add chain reads
