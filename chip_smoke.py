@@ -64,11 +64,15 @@ count set to 0 just before it and read just after:
  15-18. the card probes (raycore_tpu_torch/tools/), each at its tool's
      default shapes: every variant of its kernel against its plain
      version, then the tool's rows through the tool's main(), which is
-     the path whose launches are counted: 15 the row gather (P1), 16 the
+     the path whose launches are counted: 15 the row gather (P1; loop
+     and onehot each an entry of the kernels line, onehot's with the
+     time of its products at the bf16 peak beside its bound), 16 the
      worklist epilogue variants (P2; the accepted share under the tool's
      key0 seed, which accepts nothing, and under a finite one), 17 the
-     small-depth contraction by precision tier (P3), 18 the regroup-block
-     ablations (P4), its full block beside K2's time per block.
+     small-depth contraction by precision tier (P3; every row held to its
+     plain version at 8,192 steps, and its 32,768-step time at least 3.5x
+     its 8,192-step time), 18 the regroup-block ablations (P4), its full
+     block beside K2's time per block.
  19. the blobby 1M cell (bench.py's RAYCORE_BENCH_SCENE=blobby:
      blobby_mesh(707, 707), C=256, the 1024^2 Morton grid), the ordered
      multiwave's: the scene's build, depth_layers and the passes that
@@ -174,7 +178,8 @@ the headline and on the rounds engine's headline query; K2 three
 times: on the headline, on the blobby cell's multiwave path and on the
 256-instance frame in its pairrow mode; K1 and K2 once more on the
 path-traced frame, with one frame's launches and the sums of their
-times and bounds over its 8 queries); the line
+times and bounds over its 8 queries; the probe P1 twice, its loop and
+onehot kernels); the line
 before it the script's wall time; the last line is {"ok": true,
 "device": {...}}.
 """
@@ -232,9 +237,15 @@ SHADOW_LIFT = 1e-3
 # operations over the first and its bytes over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# The tensor cores' dense peaks (the probes' mma.sync variants).
+# The tensor cores' dense peaks (the probes' wgmma variants).
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+# Float32 additions outside the tensor cores: 67 TFLOP/s counts a fused
+# multiply-add as two operations, an addition issues at the same rate.
+PEAK_FP32_ADDS = PEAK_FP32_FLOPS / 2
+# P3: the least ratio of the 32,768-step time to the 8,192-step time; a
+# product hoisted out of the step loop would leave it near 1.
+STEP_RATIO_MIN = 3.5
 # One featurized (ray, triangle) test: the 19 nonzero terms of its four
 # dots (det rows 0-2, u*det and v*det rows 0-5, t*det rows 6-9; the other
 # 21 coefficients of the 10-deep dots are zero by construction), 19 fused
@@ -691,6 +702,8 @@ def main():
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+            for v in getattr(fn, "by_variant", ()):
+                fn.by_variant[v] = 0
 
     def read_counts(what, want):
         """The launch counts since zero_counts(): every kernel in ``want``
@@ -935,7 +948,7 @@ def main():
     k6 = brute_phase(14, rt, ops_brute, dev, read_counts, zero_counts)
 
     # 15-18. The card probes, each through its tool's entry point.
-    probes = [gather_phase(15, p1, dev, read_counts, zero_counts),
+    probes = [*gather_phase(15, p1, dev, read_counts, zero_counts),
               epilogue_phase(16, p2, dev, read_counts, zero_counts),
               matmul_phase(17, p3, dev, read_counts, zero_counts),
               block_phase(18, p4, dev, read_counts, zero_counts,
@@ -1046,10 +1059,14 @@ def main():
          "library_ms": None},
     ] + [{"name": p["name"], "route": "cuda",
           "source": f"raycore_tpu_torch/csrc/{p['name']}.cu",
-          "replaces": p["replaces"], "launches": p["launches"],
+          "replaces": p["replaces"],
+          **({"path": p["path"]} if p["path"] else {}),
+          "launches": p["launches"],
           "max_abs_err": p["err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
           "bound_ms": p["bound"][0], "bound_by": p["bound"][1],
-          "library_ms": p["library_ms"]} for p in probes]
+          "library_ms": p["library_ms"],
+          **({"products_bound_ms": p["products_bound"]}
+             if p["products_bound"] is not None else {})} for p in probes]
     say("end", f"chip_smoke.py wall time "
                f"{time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2019,20 +2036,28 @@ def shadow_oracle(rt, scene, rays, occ, t_occ, rng):
     return n_flip, int(near.sum())
 
 
-def probe_result(name, replaces, launches, err, ms, plain_ms, b, library_ms):
-    """A probe's entry of the kernels line."""
+def probe_result(name, replaces, launches, err, ms, plain_ms, b, library_ms,
+                 path=None, products_bound=None):
+    """A probe's entry of the kernels line; ``products_bound`` (ms), where
+    given, the time of every product the kernel computes at its unit's
+    peak, beside the function's own bound ``b``."""
     return dict(name=name, replaces=replaces, launches=launches, err=err,
-                ms=ms, plain_ms=plain_ms, bound=b, library_ms=library_ms)
+                ms=ms, plain_ms=plain_ms, bound=b, library_ms=library_ms,
+                path=path, products_bound=products_bound)
 
 
 def gather_phase(phase, p1, dev, read_counts, zero_counts):
     """P1 at the tool's default shapes, an (8192, 128) table and 2,048
     steps of 512 fetches: every variant against its plain version within
-    ``gather_probe.tolerance``; the tool's rows through its main() on the
-    same data, the launches counted there and its times (best of 5) those
-    of the kernels line; ``loop``'s plain version timed beside them.
-    Bound: the indices, the table and the output moved once, one addition
-    per fetched element."""
+    ``gather_probe.tolerance``; the one-hot entries a K-tile the onehot
+    kernel sets; the tool's rows through its main() on the same data, the
+    launches counted there and its times (best of 5) those of the kernels
+    line. Two entries there: ``loop`` and ``onehot``, each beside its own
+    plain version and ``index_select`` and a sum (the tool's ``xla`` row).
+    Bound of both, the function's: the indices, the table and the output
+    moved once, one addition per fetched element. ``onehot`` also states
+    the bound of the products it computes, 2 * 512 * NN * 128 a step at
+    the bf16 peak (``products_bound_ms``)."""
     NN, steps = GATHER_SHAPE
     idx, tbl = p1.make_inputs(NN, steps, dev)
     errs = {}
@@ -2051,20 +2076,30 @@ def gather_phase(phase, p1, dev, read_counts, zero_counts):
                                                    device=dev)}
     torch.cuda.synchronize()
     launches = read_counts("gather probe main", ["gather_probe"])
+    by_variant = dict(p1.run_gather.by_variant)
     ms = {v: rows[v] for v in p1.VARIANTS}
     library_ms = rows["library"]
-    plain_ms = cuda_ms(lambda: p1.run_gather_plain(idx, tbl, "loop"), 3)
-    out_bytes = steps * p1.W * 4
-    b = bound(nbytes(idx, tbl) + out_bytes, idx.numel() * p1.W)
+    plain_ms = {v: cuda_ms(lambda v=v: p1.run_gather_plain(idx, tbl, v), 3)
+                for v in ("loop", "onehot")}
+    moved = nbytes(idx, tbl) + steps * p1.W * 4
+    b = bound(moved, idx.numel() * p1.W)
+    products = 2 * p1.R * NN * p1.W * steps / PEAK_BF16_FLOPS * 1e3
     say(phase, f"gather probe (NN {NN}, {steps} steps): " + ", ".join(
         f"{v} {t:.4f} ms" for v, t in ms.items())
-        + f"; plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-          f"{b[0]:.4f} ms ({b[1]}); onehot's own work "
-          f"{2 * 512 * NN * p1.W * steps / PEAK_BF16_FLOPS * 1e3:.4f} ms "
-          f"at the bf16 peak; launches {launches}")
-    return probe_result("gather_probe", "tools/tpu_gather_probe.py:39",
-                        launches["gather_probe"], max(errs.values()),
-                        ms["loop"], plain_ms, b, library_ms)
+        + f"; plain loop {plain_ms['loop']:.4f} ms, onehot "
+          f"{plain_ms['onehot']:.4f} ms; library {library_ms:.4f} ms; bound "
+          f"{b[0]:.4f} ms ({b[1]}); onehot {ms['onehot'] / b[0]:.0f}x that "
+          f"bound and {ms['onehot'] / library_ms:.2f}x the library; the "
+          f"products onehot computes at the bf16 peak {products:.4f} ms, "
+          f"{products / ms['onehot']:.1%} of its time; launches "
+          f"{launches}, by variant {by_variant}")
+    return [probe_result("gather_probe", "tools/tpu_gather_probe.py:39",
+                         by_variant["loop"], errs["loop"], ms["loop"],
+                         plain_ms["loop"], b, library_ms, path="loop"),
+            probe_result("gather_probe", "tools/tpu_gather_probe.py:46",
+                         by_variant["onehot"], errs["onehot"], ms["onehot"],
+                         plain_ms["onehot"], b, library_ms, path="onehot",
+                         products_bound=products)]
 
 
 def epilogue_phase(phase, p2, dev, read_counts, zero_counts):
@@ -2127,23 +2162,40 @@ def epilogue_phase(phase, p2, dev, read_counts, zero_counts):
                         None)
 
 
+def check_tier(p3, a, b, got, want, v, what):
+    """Hold P3's row sums ``got`` at tier ``v`` to its plain version
+    ``want``: the FMA tier bit for bit, the tensor-core tiers within
+    ``probe_matmul_shapes.tolerance``. Returns (max abs error, the error
+    in units of the limit; 0 for fma)."""
+    err = (got - want).abs()
+    if v == "fma":
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"P3 {what}: not bit for bit equal to "
+                                 f"plain")
+        return float(err.max()), 0.0
+    ratio = float((err / p3.tolerance(a, b, v)).max())
+    if ratio > 1:
+        raise AssertionError(f"P3 {what}: error {ratio:.3g} x its limit")
+    return float(err.max()), ratio
+
+
 def matmul_phase(phase, p3, dev, read_counts, zero_counts):
     """P3: the four tiers at (512, K, 512), K = 16 and 128, against the
-    plain version of each tier: the FMA tier bit for bit, the tensor-core
-    tiers within ``probe_matmul_shapes.tolerance``, whose limit must sit
-    below the gap to the neighbouring tier's product (``tier_gap``); each
-    tier's distance from the exact product is printed beside it. Then the
-    tool's twelve rows through its main() and the 3xTF32 tier at (512, 16,
-    512), which the tool does not run, the launches counted there. The
-    kernels line takes the FMA tier's (512, 16, 512) row of main() at its
-    first step count, beside its plain version and torch.matmul on the
-    operands expanded to as many steps. Bound: 2 M K N per step at the
-    tier's peak (3xTF32 counts its three passes)."""
+    plain version of each tier (``check_tier``), whose limit must sit below
+    the gap to the neighbouring tier's product (``tier_gap``); each tier's
+    distance from the exact product is printed beside it. Then the tool's
+    twelve rows through its main() and the 3xTF32 tier at (512, 16, 512),
+    which the tool does not run, the launches counted there; every row's
+    32,768-step time at least STEP_RATIO_MIN times its 8,192-step time
+    (each step computes its own product), its time a step beside
+    ``step_bound_us``, and its output at 8,192 steps, where every CTA walks
+    many steps, held to its plain version (``check_tier``). The kernels
+    line takes the FMA tier's (512, 16, 512) row of main() at its first
+    step count, beside its plain version and torch.matmul on the operands
+    expanded to as many steps."""
     f32, bf16 = torch.float32, torch.bfloat16
     tiers = (("highest", f32), ("high", f32), ("default", f32),
              ("default", bf16))
-    peak = {"fma": (PEAK_FP32_FLOPS, 1), "3xtf32": (PEAK_TF32_FLOPS, 3),
-            "tf32": (PEAK_TF32_FLOPS, 1), "bf16": (PEAK_BF16_FLOPS, 1)}
     errs, worst = [], 0.0
     for K in (16, 128):
         for prec, dtype in tiers:
@@ -2153,23 +2205,16 @@ def matmul_phase(phase, p3, dev, read_counts, zero_counts):
             want = p3.run_matmul_plain(a, b, 4, prec)
             S = (a.double().abs() @ b.double().abs()).sum(1, keepdim=True)
             exact = (a.double() @ b.double()).sum(1, keepdim=True)
-            err = (got - want).abs()
-            worst = max(worst, float(err.max()))
+            err, ratio = check_tier(p3, a, b, got, want, v, f"{v} K={K}")
+            worst = max(worst, err)
             note = f"{v} K={K}: "
             if v == "fma":
-                if not torch.equal(got.view(torch.int32),
-                                   want.view(torch.int32)):
-                    raise AssertionError(f"P3 fma K={K}: not bit for bit "
-                                         f"equal to plain")
                 note += "bit for bit"
             else:
-                ratio = float((err / p3.tolerance(a, b, v)).max())
-                if ratio > 1:
-                    raise AssertionError(f"P3 {v} K={K}: error {ratio:.3g} "
-                                         f"x its limit")
-                note += (f"err {float(err.max()):.3g} = 2^"
-                         f"{math.log2(max(float((err / S).max()), 2.0 ** -60)):.2f}"
-                         f" S, {ratio:.3g} of its limit")
+                rel = float(((got - want).abs() / S).max())
+                note += (f"err {err:.3g} = 2^"
+                         f"{math.log2(max(rel, 2.0 ** -60)):.2f} S, "
+                         f"{ratio:.3g} of its limit")
                 if v != "bf16":
                     gap = p3.tier_gap(a, b, v)
                     if gap <= 1:
@@ -2188,13 +2233,38 @@ def matmul_phase(phase, p3, dev, read_counts, zero_counts):
     rows.append(p3.probe(512, 16, 512, "high", f32, reps=3, device=dev))
     torch.cuda.synchronize()
     launches = read_counts("matmul probe main", ["matmul_probe"])
-    flops = 2 * 512 * 16 * 512
+    shares = []
+    for r in rows:
+        ratio = r["ms"][1] / r["ms"][0]
+        need = step_bound_us(r["M"], r["K"], r["N"], r["variant"])
+        what = f"({r['M']}, {r['K']}, {r['N']}) {r['variant']}"
+        a, b = p3.operands(r["M"], r["K"], r["N"], getattr(torch, r["dtype"]),
+                           dev)
+        n = r["steps"][0]
+        err, limits = check_tier(p3, a, b, p3.run_matmul(a, b, n, r["prec"]),
+                                 p3.run_matmul_plain(a, b, n, r["prec"]),
+                                 r["variant"], f"{what} at {n} steps")
+        worst = max(worst, err)
+        shares.append(f"{what}: at {n} steps "
+                      + ("bit for bit" if r["variant"] == "fma" else
+                         f"{limits:.3g} of its limit")
+                      + f"; {r['steps'][1]} / {n} steps {ratio:.3f}x, "
+                      f"{r['us_per_step']:.4f} us a step vs "
+                      f"{need[0]:.4f} ({need[1]}, "
+                      f"{need[0] / r['us_per_step']:.1%})")
+        if ratio < STEP_RATIO_MIN:
+            raise AssertionError(
+                f"P3 {what}: {r['steps'][1]} steps took {ratio:.3f}x the "
+                f"time of {n} (at least {STEP_RATIO_MIN}): a step did not "
+                f"compute its own product")
+    say(phase, "each row against its plain version, its step ratio and its "
+               "time a step against its bound (fma: its products on the "
+               "float32 pipe; the tensor-core tiers: the larger of their "
+               "products at the tier's peak and the M (N - 1) row-sum "
+               f"additions at {PEAK_FP32_ADDS / 1e12:.1f} T a second): "
+        + "; ".join(shares) + f"; launches {launches}")
     at = {r["variant"]: r for r in rows
           if (r["M"], r["K"], r["N"]) == (512, 16, 512)}
-    say(phase, "per step at (512, 16, 512) against the bound: " + ", ".join(
-        f"{v} {r['us_per_step']:.4f} us vs "
-        f"{flops * peak[v][1] / peak[v][0] * 1e6:.4f} us"
-        for v, r in at.items()) + f"; launches {launches}")
     steps, ms = at["fma"]["steps"][0], at["fma"]["ms"][0]
     a, b = p3.operands(512, 16, 512, f32, dev)
     plain_ms = cuda_ms(lambda: p3.run_matmul_plain(a, b, steps, "highest"),
@@ -2203,13 +2273,32 @@ def matmul_phase(phase, p3, dev, read_counts, zero_counts):
                          3)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the matmul probe left allow_tf32 set")
-    bnd = bound(nbytes(a, b) + 512 * 4, flops * steps)
+    bnd = bound(nbytes(a, b) + 512 * 4, steps * 2 * 512 * 16 * 512)
     say(phase, f"fma tier (512, 16, 512) x {steps} steps: kernel {ms:.4f} "
                f"ms, plain {plain_ms:.4f} ms (one product), library "
-               f"{library_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+               f"{library_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, its "
+               f"products)")
     return probe_result("matmul_probe", "tools/probe_matmul_shapes.py:30",
                         launches["matmul_probe"], worst, ms, plain_ms, bnd,
                         library_ms)
+
+
+def step_bound_us(M, K, N, variant):
+    """(µs, what bounds it): the least time a step of P3 takes at
+    ``variant``. The FMA tier: its M K N fused multiply-adds (2 M K N
+    operations) on the float32 pipe, one chain over k and n giving a row's
+    sum with no further addition; the tensor-core tiers: the larger of 2 M
+    K N operations a pass at the tier's peak (3xTF32 makes three passes)
+    and the M (N - 1) row-sum additions of the (M, N) product at
+    PEAK_FP32_ADDS."""
+    if variant == "fma":
+        return 2 * M * K * N / PEAK_FP32_FLOPS * 1e6, "operations"
+    peak, passes = {"3xtf32": (PEAK_TF32_FLOPS, 3),
+                    "tf32": (PEAK_TF32_FLOPS, 1),
+                    "bf16": (PEAK_BF16_FLOPS, 1)}[variant]
+    mma = 2 * M * K * N * passes / peak * 1e6
+    adds = M * (N - 1) / PEAK_FP32_ADDS * 1e6
+    return (mma, "tensor cores") if mma >= adds else (adds, "row sums")
 
 
 def block_phase(phase, p4, dev, read_counts, zero_counts, k2_us):

@@ -9,11 +9,13 @@ from an (NN, 128) float32 table:
   loop    one warp per step walks its 512 indices in order
   take    one CTA per step fetches its 512 rows in parallel, then reduces
   onehot  a (512, NN) bf16 one-hot tile times the bf16 table on the
-          tensor cores, then the column sums
+          tensor cores (wgmma from shared memory, the table staged in
+          bf16 K-tiles, each serving two steps), then the column sums
 
 and ``gather_library``, one ``torch.index_select`` and a sum, is the
 tool's ``xla`` baseline. The card gathers in hardware and a 4 MB table sits
-in L2, so ``onehot`` is expected to lose by far; it is ported all the same.
+in L2, so ``onehot``, which computes every product of the one-hot matrix,
+loses to it by design; it is ported all the same.
 
     python -m raycore_tpu_torch.tools.gather_probe [NN] [steps]
 """
@@ -86,10 +88,14 @@ def run_gather(idx, tbl, variant):
     launch("gather_probe", dev, idx.data_ptr(), tbl.data_ptr(),
            out.data_ptr(), tbl.shape[0], steps, VARIANTS.index(variant))
     run_gather.launches += 1
+    run_gather.by_variant[variant] += 1
     return out
 
 
 run_gather.launches = 0
+# The launches of each variant (the total is ``launches``); whoever zeroes
+# ``launches`` zeroes these too.
+run_gather.by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def make_inputs(NN, steps, device=None, seed=0):

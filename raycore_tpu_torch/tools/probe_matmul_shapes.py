@@ -1,22 +1,25 @@
 """Card probe P3: the cost of a small-depth contraction by shape and
 precision (counterpart of ``tools/probe_matmul_shapes.py``).
 
-Kernel ``csrc/matmul_probe.cu``: a grid of ``steps`` CTAs, each computing
-the whole (M, K) x (K, N) product of the same operands and writing its row
-sums, so the per-step cost is the production sweep's per-block contraction
-without its gathers. The tool's precision tiers map to Hopper as follows
-(``variant_of``):
+Kernel ``csrc/matmul_probe.cu``: persistent CTAs that walk ``steps``
+steps, each computing the whole (M, K) x (K, N) product of the same
+operands and writing its row sums, so the per-step cost is the production
+sweep's per-block contraction without its gathers. The operands stay in
+shared memory where they fit (every tier at K = 16 up to M = 2048, but
+3xTF32 there) and stream from L2 otherwise. The tool's precision tiers map
+to Hopper as follows (``variant_of``):
 
-  highest, float32 -> "fma":    float32 FMAs on the CUDA cores
-  high, float32    -> "3xtf32": three TF32 mma.sync passes (hi*hi, hi*lo,
-                                lo*hi), the error-compensated tier
-  default, float32 -> "tf32":   one TF32 mma.sync pass
-  bfloat16 inputs  -> "bf16":   one bf16 mma.sync pass (any tier)
+  highest, float32 -> "fma":    float32 FMAs on the CUDA cores, 8 rows x 8
+                                columns a thread
+  high, float32    -> "3xtf32": three TF32 wgmma passes (lo*hi, hi*lo,
+                                hi*hi), the error-compensated tier
+  default, float32 -> "tf32":   one TF32 wgmma pass
+  bfloat16 inputs  -> "bf16":   one bf16 wgmma pass (any tier)
 
 The per-step cost is the slope between 8,192 and 32,768 steps, as in the
-tool. On the card the CTAs run in parallel, so it is a throughput: the
-time the card needs per step when many steps are in flight, not the
-latency of one.
+tool. On the card the steps run in parallel on the SMs, so it is a
+throughput: the time the card needs per step when many steps are in
+flight, not the latency of one.
 
     python -m raycore_tpu_torch.tools.probe_matmul_shapes
 """
@@ -32,7 +35,8 @@ from ._common import best_ms, launch
 
 VARIANTS = ("fma", "tf32", "3xtf32", "bf16")
 TIER_OF_PREC = {"highest": "fma", "default": "tf32", "high": "3xtf32"}
-# Tile sizes of the kernel: rows per tile and columns per chunk.
+# Tile sizes of the kernel: rows per tile and columns per chunk (the FMA
+# tier's; the tensor-core tiers take 128 columns, and 64 for a last one).
 ROW_TILE = 128
 COL_CHUNK = 64
 MAX_K = 256
@@ -78,9 +82,12 @@ def to_tf32(x):
 
 def _fma_row_sums(a, b):
     """The FMA tier bit for bit: each (row, column) dot an ascending fused
-    multiply-add chain over K; then per row two halves, half h adding the
-    dots of columns 32h..32h+31 of each 64-column chunk in turn, and the
-    row sum half 0 + half 1."""
+    multiply-add chain over K. Then, per row and 64-column chunk, each of
+    8 threads adds its 8 dots in turn from 0 (columns 4 t .. 4 t + 3, then
+    32 + 4 t .. 32 + 4 t + 3, for thread t), and the 8 partials are added
+    as a tree, ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)); group g
+    (0 or 1) adds the sums of chunks g, g + 2, ... in turn from 0, and the
+    row sum is group 0's + group 1's. All additions in float32."""
     M, N = a.shape[0], b.shape[1]
     if N % COL_CHUNK:
         raise ValueError(f"matmul probe: N = {N} is not a multiple of "
@@ -88,12 +95,20 @@ def _fma_row_sums(a, b):
     dots = torch.zeros((M, N), dtype=torch.float32, device=a.device)
     for k in range(a.shape[1]):
         dots = fma(a[:, k:k + 1], b[k:k + 1], dots)
-    cols = dots.view(M, N // COL_CHUNK, 2, COL_CHUNK // 2).transpose(1, 2) \
-        .reshape(M, 2, -1)
-    halves = torch.zeros((M, 2), dtype=torch.float32, device=a.device)
-    for j in range(cols.shape[2]):
-        halves = halves + cols[:, :, j]
-    return halves[:, :1] + halves[:, 1:]
+    chunks = N // COL_CHUNK
+    # [row, chunk, half, thread, column]: column 64 c + 32 h + 4 t + e.
+    cols = dots.view(M, chunks, 2, 8, 4)
+    part = torch.zeros((M, chunks, 8), dtype=torch.float32, device=a.device)
+    for h in range(2):
+        for e in range(4):
+            part = part + cols[:, :, h, :, e]
+    while part.shape[2] > 1:
+        part = part[:, :, 0::2] + part[:, :, 1::2]
+    group = [torch.zeros((M, 1), dtype=torch.float32, device=a.device)
+             for _ in range(2)]
+    for c in range(chunks):
+        group[c % 2] = group[c % 2] + part[:, c]
+    return group[0] + group[1]
 
 
 def _row_sums(a, b, variant: str):
@@ -161,7 +176,7 @@ def tier_gap(a, b, variant: str) -> float:
 
 
 def run_matmul(a, b, steps: int, prec: str):
-    """Kernel P3 (``csrc/matmul_probe.cu``): ``steps`` CTAs, each computing
+    """Kernel P3 (``csrc/matmul_probe.cu``): ``steps`` steps, each computing
     the (M, 1) row sums of ``a @ b`` at the tier ``variant_of(prec,
     a.dtype)``; returns them. CPU tensors take ``run_matmul_plain``; CUDA
     tensors launch the kernel or raise. Needs M % 128 == 0, N % 64 == 0,

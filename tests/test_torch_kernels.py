@@ -18,7 +18,7 @@ from raycore_tpu_torch.tools import epilogue_experiments as t_epi
 from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
-from raycore_tpu_torch.tools._common import check_equal
+from raycore_tpu_torch.tools._common import best_ms, check_equal
 from torch_adversarial import (PHASE_A_CASES, brute_case, morton_grid,
                                phase_a_case, phase_a_signed_zeros)
 
@@ -825,18 +825,22 @@ def test_kernel_build_is_cached(cuda):
                                         ("default", torch.float32),
                                         ("high", torch.float32),
                                         ("default", torch.bfloat16)])
-@pytest.mark.parametrize("M,K,N", [(256, 16, 128), (128, 128, 192)])
+@pytest.mark.parametrize("M,K,N", [(256, 16, 128), (128, 128, 192),
+                                   (2048, 16, 512)])
 def test_matmul_probe_kernel_matches_plain(cuda, M, K, N, prec, dtype):
     """P3 at every tier against the plain version of that tier: the FMA
     tier bit for bit, the tensor-core tiers within ACC_REL times the row's
     sum of product magnitudes (``probe_matmul_shapes.tolerance``), a limit
     that a kernel computing the neighbouring tier's product fails
-    (``tier_gap``, pinned on the CPU). Every step writes the same bits."""
+    (``tier_gap``, pinned on the CPU). Every step writes the same bits. At
+    5 steps each CTA takes one step; at 4,099 (more than the SMs times the
+    CTAs that fit on one) each walks several, its cursors wrapping."""
     a, b = t_mm.operands(M, K, N, dtype, cuda)
+    steps = 4099 if M == 2048 else 5
     before = t_mm.run_matmul.launches
-    got = t_mm.run_matmul(a, b, 5, prec)
+    got = t_mm.run_matmul(a, b, steps, prec)
     assert t_mm.run_matmul.launches == before + 1
-    want = t_mm.run_matmul_plain(a, b, 5, prec)
+    want = t_mm.run_matmul_plain(a, b, steps, prec)
     variant = t_mm.variant_of(prec, dtype)
     if variant == "fma":
         check_equal(got, want, "P3 fma")
@@ -872,6 +876,48 @@ def test_gather_probe_kernel_matches_plain(cuda, variant):
     want = t_gather.run_gather_plain(idx, tbl, variant)
     assert bool(((got - want).abs()
                  <= t_gather.tolerance(idx, tbl, variant)).all())
+
+
+@pytest.mark.parametrize("case", ["one_tile_a_step", "one_tile_in_all"])
+def test_gather_onehot_sets_and_clears_its_tile(cuda, case):
+    """The onehot kernel's shared one-hot tiles on a (1008, 128) table. The
+    indices come in aligned blocks of 16 rows, and the kernel's K-tiles
+    are whole numbers of such blocks (wgmma's k16), so a block lies in one
+    K-tile whatever rows a K-tile holds: every step's 512 indices in one
+    block, block s for step s (modulo the 63 blocks), so a tile is set full
+    and cleared before another step's; or every index of the run in the
+    last 16 rows, which lie in the last, partial K-tile (1008 is a multiple
+    of 16 and of no larger power of two), so every other tile stays empty.
+    Within ``gather_probe.tolerance`` of the plain version, which a stale
+    or missing entry would leave."""
+    NN, steps = 1008, 37
+    idx, tbl = t_gather.make_inputs(NN, steps, cuda, seed=5)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    if case == "one_tile_a_step":
+        block = (torch.arange(steps, device=cuda) % (NN // 16)) \
+            .repeat_interleave(512)
+    else:
+        block = torch.full((steps * 512,), NN // 16 - 1, device=cuda)
+    off = torch.randint(0, 16, (steps * 512,), generator=gen, device=cuda)
+    idx = (block * 16 + off).to(torch.int32)
+    rows = (idx // 16).view(steps, 512)
+    assert bool((rows == rows[:, :1]).all())
+    got = t_gather.run_gather(idx, tbl, "onehot")
+    want = t_gather.run_gather_plain(idx, tbl, "onehot")
+    assert bool(((got - want).abs()
+                 <= t_gather.tolerance(idx, tbl, "onehot")).all())
+
+
+@pytest.mark.parametrize("prec,dtype", [("highest", torch.float32),
+                                        ("default", torch.bfloat16)])
+def test_matmul_probe_time_grows_with_steps(cuda, prec, dtype):
+    """Every step computes its own product: at (512, 16, 512) 32,768 steps
+    take at least 3.5x the time of 8,192 (a product hoisted out of the
+    step loop would leave the time nearly flat)."""
+    a, b = t_mm.operands(512, 16, 512, dtype, cuda)
+    t1, t4 = (best_ms(lambda n=n: t_mm.run_matmul(a, b, n, prec), 3)
+              for n in (8192, 32768))
+    assert t4 >= 3.5 * t1, (t1, t4)
 
 
 @pytest.mark.parametrize("same_tile", [False, True])

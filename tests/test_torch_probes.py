@@ -138,27 +138,43 @@ def test_matmul_tiers_and_tolerances():
 
 
 def test_matmul_fma_tier_order():
-    """The FMA tier's plain version on (2, 3) @ (3, 128) against the
-    kernel's order written out: each dot a chain of single-rounding fused
-    multiply-adds, then per row half h adding columns 32h..32h+31 of chunk
-    0, then of chunk 1, in float32; the row sum is half 0 + half 1."""
-    a, b = t_mm.operands(2, 3, 128, torch.float32, CPU)
+    """The FMA tier's plain version on (2, 3) @ (3, N), N = 64, 128 and 192
+    (one chunk; two; three, so group 0 adds two), against the kernel's
+    order written out: each dot a chain of single-rounding fused
+    multiply-adds; per 64-column chunk, thread t of 8 adds its columns
+    4t..4t+3 and 32+4t..32+4t+3 in turn from 0, and the 8 partials go
+    pairwise, ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)); group 0
+    adds chunks 0, 2, ... and group 1 chunks 1, 3, ... in turn from 0; the
+    row sum is group 0 + group 1, all in float32."""
+    for N in (64, 128, 192):
+        _check_fma_order(N)
+
+
+def _check_fma_order(N):
+    a, b = t_mm.operands(2, 3, N, torch.float32, CPU)
     got = t_mm.run_matmul_plain(a, b, 1, "highest")
+    zero = torch.zeros((), dtype=torch.float32)
     for r in range(2):
         dots = []
-        for n in range(128):
-            acc = torch.zeros((), dtype=torch.float32)
+        for n in range(N):
+            acc = zero
             for k in range(3):
                 acc = fma_rn(a[r, k], b[k, n], acc)
             dots.append(acc)
-        halves = []
-        for h in range(2):
-            s = torch.zeros((), dtype=torch.float32)
-            for n0 in (0, 64):
-                for j in range(32):
-                    s = s + dots[n0 + 32 * h + j]
-            halves.append(s)
-        assert got[r, 0].view(torch.int32) == (halves[0] + halves[1]) \
+        groups = [zero, zero]
+        for c in range(N // 64):
+            parts = []
+            for t in range(8):
+                s = zero
+                for n in (*range(4 * t, 4 * t + 4),
+                          *range(32 + 4 * t, 32 + 4 * t + 4)):
+                    s = s + dots[64 * c + n]
+                parts.append(s)
+            p = parts
+            chunk = ((p[0] + p[1]) + (p[2] + p[3])) \
+                + ((p[4] + p[5]) + (p[6] + p[7]))
+            groups[c % 2] = groups[c % 2] + chunk
+        assert got[r, 0].view(torch.int32) == (groups[0] + groups[1]) \
             .view(torch.int32)
 
 
@@ -239,6 +255,25 @@ def test_gather_probe_matches_tool(tool, variant):
     if variant != "onehot":
         lib = t_gather.gather_library(_t(idx), _t(tbl))
         assert (np.abs(lib.numpy() - ref) <= tol).all()
+
+
+@pytest.mark.parametrize("case", ["one_block_a_step", "one_block_in_all"])
+def test_gather_onehot_block_patterns_match_tool(tool, case):
+    """``onehot`` on the index patterns the card test gives its kernel, a
+    (64, 128) table over 4 steps against the tool in interpret mode: every
+    step's 512 indices in one aligned block of 16 rows, block s for step s;
+    or every index in the last 16 rows, the other rows never fetched.
+    Within ``gather_probe.tolerance``."""
+    mod = tool("tpu_gather_probe")
+    rng = np.random.default_rng(4)
+    tbl = rng.normal(size=(64, 128)).astype(np.float32)
+    block = np.repeat(np.arange(4), 512) if case == "one_block_a_step" \
+        else np.full(4 * 512, 3)
+    idx = (16 * block + rng.integers(0, 16, 4 * 512)).astype(np.int32)
+    ref = _gather_tool(mod, "onehot", idx, tbl, 4)
+    got = t_gather.run_gather(_t(idx), _t(tbl), "onehot")
+    tol = t_gather.tolerance(_t(idx), _t(tbl), "onehot").numpy()
+    assert (np.abs(got.numpy() - ref) <= tol).all()
 
 
 # P2: tools/epilogue_experiments.py.
