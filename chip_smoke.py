@@ -67,12 +67,15 @@ count set to 0 just before it and read just after:
      the path whose launches are counted: 15 the row gather (P1; loop
      and onehot each an entry of the kernels line, onehot's with the
      time of its products at the bf16 peak beside its bound), 16 the
-     worklist epilogue variants (P2; the accepted share under the tool's
-     key0 seed, which accepts nothing, and under a finite one), 17 the
+     worklist epilogue variants (P2; every variant at the tool's 8,192
+     blocks under both seeds, the accepted share under the tool's key0
+     seed, which accepts nothing, and under a finite one), 17 the
      small-depth contraction by precision tier (P3; every row held to its
      plain version at 8,192 steps, and its 32,768-step time at least 3.5x
-     its 8,192-step time), 18 the regroup-block ablations (P4), its full
-     block beside K2's time per block.
+     its 8,192-step time), 18 the regroup-block ablations (P4; every row
+     held to its plain version at the tool's 8,192 blocks, and the share
+     of pairs its division-free pre-test refuses), its full block beside
+     K2's time per block.
  19. the blobby 1M cell (bench.py's RAYCORE_BENCH_SCENE=blobby:
      blobby_mesh(707, 707), C=256, the 1024^2 Morton grid), the ordered
      multiwave's: the scene's build, depth_layers and the passes that
@@ -2104,28 +2107,34 @@ def gather_phase(phase, p1, dev, read_counts, zero_counts):
 
 def epilogue_phase(phase, p2, dev, read_counts, zero_counts):
     """P2 at the tool's default shapes (64 tiles of 512 rows, 8,192
-    blocks): every variant against its plain version under the tool's key0
-    seed (t a NaN: nothing accepted) and under a seed that decodes to t =
-    10, on 128 blocks (two per tile; the plain version's float64 dot makes
-    more slow); the accepted share of ``full`` under both seeds; every
-    variant timed under t = 10, which the tool does not run; the tool's
-    rows through its main() (the tool's seed), the launches counted there
-    and its ``full`` row the kernels line's time. Bound of ``full``: 128
-    FLOP per (row, lane) over every block, every tile's rows, tmin, key0
-    and table read once, the keys written once."""
+    blocks): every variant against its plain version at those 8,192
+    blocks (the plain version computes each visited tile once, as blocks
+    on a tile write the same keys) under the tool's key0 seed (t a NaN:
+    nothing accepted) and under a seed that decodes to t = 10; the
+    accepted share of ``full`` under both seeds; every variant timed under
+    both seeds; the tool's rows through its main() (the tool's seed), the
+    launches counted there and its ``full`` row the kernels line's time.
+    Bound of ``full``: 128 FLOP per (row, lane) over every block, every
+    tile's rows, tmin, key0 and table read once, the keys written once.
+    The VPU rows' bound counts issue slots: their 19 products and 15
+    additions are each rounded, so no FFMA fuses them, and each takes a
+    slot of the float32 pipe (PEAK_FP32_ADDS a second); the old 38 FLOP
+    a pair at the FMA peak counted fused pairs that cannot be fused."""
     TILE, n_blocks = EPILOGUE_SHAPE
     phi, feats, tmin, key0 = p2.make_inputs(TILE, device=dev)
     seeds = {"tool": key0, "finite": p2.finite_key0(key0.shape[0],
                                                     device=dev)}
     worst, beyond = 0.0, 0
+    t0 = time.perf_counter()
     for v in p2.VARIANTS:
         for name, k0 in seeds.items():
-            kw = dict(TILE=TILE, n_blocks=2 * p2.N_TILES, variant=v)
+            kw = dict(TILE=TILE, n_blocks=n_blocks, variant=v)
             n, err = p2.check(p2.run_epilogue(phi, feats, tmin, k0, **kw),
                               p2.run_epilogue_plain(phi, feats, tmin, k0,
                                                     **kw),
                               v, f"P2 ({name} seed)")
             worst, beyond = max(worst, err), beyond + n
+    check_s = time.perf_counter() - t0
     full = lambda k0: p2.run_epilogue(phi, feats, tmin, k0, TILE=TILE,
                                       n_blocks=n_blocks, variant="full")
     share = {name: float((full(k0) != k0).float().mean())
@@ -2133,17 +2142,21 @@ def epilogue_phase(phase, p2, dev, read_counts, zero_counts):
     plain_ms = cuda_ms(lambda: p2.run_epilogue_plain(
         phi, feats, tmin, key0, TILE=TILE, n_blocks=n_blocks,
         variant="full"), 1)
-    every = {v: cuda_ms(lambda v=v: p2.run_epilogue(
-        phi, feats, tmin, seeds["finite"], TILE=TILE, n_blocks=n_blocks,
-        variant=v), 3) for v in p2.VARIANTS}
-    say(phase, f"epilogue probe: 7 variants x 2 seeds equal to plain "
-               f"({beyond} rows past the approximate reciprocal's bound, "
-               f"max t err {worst:.3g}); full on {n_blocks} blocks accepts "
-               f"{share['tool']:.4f} of rows under the tool's seed "
-               f"0x7FFFFF80 and {share['finite']:.4f} under t = 10; every "
-               f"variant at TILE {TILE} under t = 10: " + ", ".join(
-                   f"{v} {t:.3f} ms" for v, t in every.items())
-        + "; the tool's rows:")
+    every = {name: {v: cuda_ms(lambda v=v, k0=k0: p2.run_epilogue(
+        phi, feats, tmin, k0, TILE=TILE, n_blocks=n_blocks, variant=v), 3)
+        for v in p2.VARIANTS} for name, k0 in seeds.items()}
+    say(phase, f"epilogue probe: 7 variants x 2 seeds at {n_blocks} "
+               f"blocks equal to plain ({beyond} rows past the approximate "
+               f"reciprocal's bound, max t err {worst:.3g}; {check_s:.1f} s)"
+               f"; full accepts {share['tool']:.4f} of rows under the "
+               f"tool's seed 0x7FFFFF80 and {share['finite']:.4f} under "
+               f"t = 10; every variant at TILE {TILE}, " + "; ".join(
+                   f"{name} seed: " + ", ".join(
+                       f"{v} {t:.4f} ms" for v, t in times.items())
+                   for name, times in every.items())
+        + f"; full - matmul_only under t = 10: "
+          f"{every['finite']['full'] - every['finite']['matmul_only']:.4f}"
+          f" ms; the tool's rows:")
     zero_counts()
     rows = p2.main(TILE, n_blocks, reps=3, device=dev)
     torch.cuda.synchronize()
@@ -2151,9 +2164,17 @@ def epilogue_phase(phase, p2, dev, read_counts, zero_counts):
     ms = next(r["ms"] for r in rows
               if r["variant"] == "full" and r["TILE"] == TILE)
     C = p2.C
+
+    def row_bound(r):
+        pairs = r["n_blocks"] * r["TILE"] * C
+        if "vpu" in r["variant"]:
+            return (f"{pairs * 34 / PEAK_FP32_ADDS * 1e3:.4f} ms (34 issue "
+                    f"slots; 38 FLOP at the FMA peak, the old count, "
+                    f"{pairs * 38 / PEAK_FP32_FLOPS * 1e3:.4f})")
+        return f"{pairs * 128 / PEAK_FP32_FLOPS * 1e3:.4f} ms"
+
     say(phase, "bounds (operations): " + ", ".join(
-        f"{r['label']} "
-        f"{r['n_blocks'] * r['TILE'] * C * (38 if 'vpu' in r['variant'] else 128) / PEAK_FP32_FLOPS * 1e3:.4f} ms"
+        f"{r['label']} {r['ms']:.4f} ms against {row_bound(r)}"
         for r in rows) + f"; launches {launches}")
     b = bound(nbytes(phi, feats, tmin, key0) + key0.numel() * 4,
               n_blocks * TILE * C * 128)
@@ -2303,28 +2324,45 @@ def step_bound_us(M, K, N, variant):
 
 def block_phase(phase, p4, dev, read_counts, zero_counts, k2_us):
     """P4 at the tool's default shapes (a 32,768-subgroup ray table, 8,192
-    clusters): every row of the tool against its plain version on 64
-    blocks, bit for bit; the tool's rows through its main(), the launches
-    counted there, its ``full`` row at SPB 16 the kernels line's time, held
-    beside K2's time per headline block (``k2_us``, phase 5). Bound: 104
-    FLOP per (row, lane), each distinct gathered subgroup and each
+    clusters): every row of the tool against its plain version at the
+    tool's 8,192 blocks, where each persistent CTA walks many blocks and
+    its cursors wrap, bit for bit; full and no_matmul at SPB 16 also
+    through the model routed through the kernel's division-free pre-test
+    (``run_block_model``), equal to plain, with the share of (row, lane)
+    pairs it refuses; the tool's rows through its main(), the launches
+    counted there, its ``full`` row at SPB 16 the kernels line's time,
+    held beside K2's time per headline block (``k2_us``, phase 5). Bound:
+    104 FLOP per (row, lane), each distinct gathered subgroup and each
     distinct cluster's 13 used feature rows read once (main() counts
     them), the ids read and both outputs written once."""
     from raycore_tpu_torch.tools._common import check_equal
     tbl, feats, gen = p4.make_inputs(device=dev)
     n_sub, K = tbl.shape[0] - 1, feats.shape[0]
-    n_check, ids = 64, {}
+    refused, t0 = {}, time.perf_counter()
     for v, G, SPB in p4.CONFIGS:
-        ids[SPB] = p4.block_ids(n_check, SPB, n_sub, K, gen)
-        tblc = torch.randn((n_check, G * SPB, 16), generator=gen,
+        ids = p4.block_ids(PROBE_BLOCKS, SPB, n_sub, K, gen)
+        tblc = torch.randn((PROBE_BLOCKS, G * SPB, 16), generator=gen,
                            device=dev) if v == "contig_tbl" else None
-        args = (v, G, SPB, *ids[SPB], tbl, feats, tblc)
-        check_equal(p4.run_block(*args), p4.run_block_plain(*args),
-                    f"P4 {v} SPB={SPB}")
-    plain_ms = cuda_ms(lambda: p4.run_block_plain("full", 32, 16, *ids[16],
-                                                  tbl, feats), 1)
+        args = (v, G, SPB, *ids, tbl, feats, tblc)
+        want = p4.run_block_plain(*args)
+        check_equal(p4.run_block(*args), want, f"P4 {v} SPB={SPB}")
+        if (v, SPB) in (("full", 16), ("no_matmul", 16)):
+            got, n = p4.run_block_model(*args)
+            check_equal(got, want, f"P4 model {v} SPB={SPB}")
+            refused[v] = n / (PROBE_BLOCKS * G * SPB * p4.C)
+        if (v, SPB) == ("full", 16):
+            ids16 = ids
+        del want, tblc
+    check_s = time.perf_counter() - t0
+    n_plain = 64
+    plain_ms = cuda_ms(lambda: p4.run_block_plain(
+        "full", 32, 16, ids16[0][:n_plain * 16], ids16[1][:n_plain], tbl,
+        feats), 1)
     say(phase, f"block probe: every row of the tool bit for bit equal to "
-               f"plain on {n_check} blocks; the tool's rows:")
+               f"plain at {PROBE_BLOCKS} blocks ({check_s:.1f} s); the "
+               f"pre-test refuses {refused['full']:.4f} of full's (row, "
+               f"lane) pairs and {refused['no_matmul']:.4f} of "
+               f"no_matmul's; the tool's rows:")
     zero_counts()
     row = next(r for r in p4.main(PROBE_BLOCKS, reps=3, device=dev)
                if (r["variant"], r["SPB"]) == ("full", 16))
@@ -2342,7 +2380,7 @@ def block_phase(phase, p4, dev, read_counts, zero_counts, k2_us):
                f"per (row, lane)); K2 on the headline's blocks {k2_us:.4f} "
                f"us/block ({k2_us * 1e6 / (32 * 16 * 256):.3f} ps per (row, "
                f"lane), 256 lanes, 19 terms); plain {plain_ms:.3f} ms on "
-               f"{n_check} blocks; bound {b[0]:.4f} ms ({b[1]}); launches "
+               f"{n_plain} blocks; bound {b[0]:.4f} ms ({b[1]}); launches "
                f"{launches}")
     return probe_result("block_probe", "tools/probe_block_overhead.py:70",
                         launches["block_probe"], 0.0, ms, plain_ms, b, None)

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "raycore_gather_probe": (_P, _P, _P, _I, _I, _I, _P),
     "raycore_epilogue_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                _F, _P),
+    "raycore_epilogue_rcp_check": (_I, _P, _P),
     "raycore_matmul_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "raycore_block_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                             _P),

@@ -188,6 +188,18 @@ def run_epilogue(phi, feats, tmin, key0, *, TILE, n_blocks, variant,
 run_epilogue.launches = 0
 
 
+def rcp_check(exponent, device=None):
+    """The kernel's branch-free reciprocal (``csrc/epilogue_probe.cu:
+    rcp_fast``) on the card against the correctly rounded one, over every
+    float32 2^exponent (1 + m 2^-23) of both signs: (values that differ,
+    values in its range). The kernel takes that reciprocal for every det in
+    its range and divides elsewhere."""
+    dev = default_device(device)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    launch("epilogue_rcp_check", dev, exponent, counts.data_ptr())
+    return int(counts[0]), int(counts[1])
+
+
 def check(got, want, variant, what):
     """The kernel's keys against the plain version's. Exact variants: equal
     bit for bit (``_common.check_equal``). The approximate-reciprocal

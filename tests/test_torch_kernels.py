@@ -19,7 +19,8 @@ from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
 from raycore_tpu_torch.tools._common import best_ms, check_equal
-from torch_adversarial import (PHASE_A_CASES, brute_case, morton_grid,
+from torch_adversarial import (PHASE_A_CASES, block_probe_case, brute_case,
+                               epilogue_probe_case, morton_grid,
                                phase_a_case, phase_a_signed_zeros)
 
 pytestmark = pytest.mark.cuda
@@ -960,6 +961,116 @@ def test_block_probe_kernel_matches_plain(cuda, variant, G, SPB):
     want = t_block.run_block_plain(variant, G, SPB, subs, cids, tbl, feats,
                                    tblc)
     check_equal(got, want, f"P4 {variant}")
+    hits = want[0] != INT32_MAX
+    assert bool(hits.any()) and (variant == "mm_only" or not hits.all())
+
+
+@pytest.mark.parametrize("TILE", [100, 256, 512, 1000, 1024])
+@pytest.mark.parametrize("variant", t_epi.VARIANTS)
+def test_epilogue_probe_kernel_at_every_tile(cuda, variant, TILE):
+    """P2 at TILE 256, 512 and 1024, and at 100 and 1000, which are not
+    whole numbers of the 64 rows the kernel's register blocks cover: 3
+    tiles, 7 blocks, the finite seed, against the plain version as
+    ``epilogue_experiments.check`` allows."""
+    phi, feats, tmin, _ = t_epi.make_inputs(TILE, n_tiles=3, device=cuda,
+                                            seed=TILE)
+    key0 = t_epi.finite_key0(phi.shape[0], device=cuda)
+    kw = dict(TILE=TILE, n_blocks=7, variant=variant)
+    got = t_epi.run_epilogue(phi, feats, tmin, key0, **kw)
+    t_epi.check(got, t_epi.run_epilogue_plain(phi, feats, tmin, key0, **kw),
+                variant, f"P2 TILE={TILE}")
+
+
+@pytest.mark.parametrize("variant", t_epi.VARIANTS)
+def test_epilogue_probe_kernel_across_the_grid(cuda, variant):
+    """P2 on 300 blocks of 6 tiles of 100 rows, more than the persistent
+    grid holds (one CTA an SM), so every CTA walks several blocks and its
+    two stages alternate; the finite seed."""
+    phi, feats, tmin, _ = t_epi.make_inputs(100, n_tiles=6, device=cuda,
+                                            seed=9)
+    key0 = t_epi.finite_key0(phi.shape[0], device=cuda)
+    kw = dict(TILE=100, n_blocks=300, variant=variant)
+    got = t_epi.run_epilogue(phi, feats, tmin, key0, **kw)
+    t_epi.check(got, t_epi.run_epilogue_plain(phi, feats, tmin, key0, **kw),
+                variant, "P2 across the grid")
+
+
+@pytest.mark.parametrize("exponent", [-125, -100, -60, -1, 0, 1, 60, 100,
+                                      124])
+def test_epilogue_probe_fast_reciprocal_is_correctly_rounded(cuda, exponent):
+    """The P2 kernel's branch-free reciprocal equals the correctly rounded
+    one on every float32 of the exponent, both signs (2^24 values), across
+    its range [2^-125, 2^125]."""
+    assert t_epi.rcp_check(exponent, cuda) == (0, 2 ** 24)
+
+
+@pytest.mark.parametrize("seed_key", ["tool", "finite"])
+@pytest.mark.parametrize("variant", [v for v in t_epi.VARIANTS
+                                     if v not in t_epi.APPROX])
+def test_epilogue_probe_kernel_on_adversarial_dets(cuda, variant, seed_key):
+    """P2 on tiles whose products sit on special dets (+-0, subnormal,
+    2^+-126-scale, huge, +-inf, NaN) and on the u and v clauses' edges
+    (``torch_adversarial.epilogue_probe_case``), 4 tiles of 96 rows, 8
+    blocks: the exact variants bit for bit with the plain version. (The
+    approximate reciprocal flushes subnormal dets, so those variants are
+    held to ``check``'s bound on the tool's data only.)"""
+    phi, feats = (torch.as_tensor(x, device=cuda)
+                  for x in epilogue_probe_case(96, 4))
+    tmin = torch.full((phi.shape[0], 1), -1.0, device=cuda)
+    key0 = t_epi.make_inputs(96, n_tiles=4, device=cuda)[3] \
+        if seed_key == "tool" else t_epi.finite_key0(phi.shape[0],
+                                                      device=cuda)
+    kw = dict(TILE=96, n_blocks=8, variant=variant)
+    got = t_epi.run_epilogue(phi, feats, tmin, key0, **kw)
+    t_epi.check(got, t_epi.run_epilogue_plain(phi, feats, tmin, key0, **kw),
+                variant, "P2 adversarial")
+
+
+# Blocks of the P4 card checks: more than the persistent grid holds (one
+# CTA an SM), so every CTA walks several blocks and its cursors wrap.
+BLOCK_PROBE_BLOCKS = 300
+
+
+@pytest.mark.parametrize("G,SPB", [(16, 8), (16, 16), (16, 32), (32, 8),
+                                   (32, 16), (32, 32), (12, 7), (31, 33),
+                                   (1, 300)])
+@pytest.mark.parametrize("variant", t_block.VARIANTS)
+def test_block_probe_kernel_across_the_grid(cuda, variant, G, SPB):
+    """P4 at G 16 and 32 with SPB 8, 16 and 32, and at 84, 1023 and 300
+    rows (not whole numbers of the 64 rows the register blocks cover; at
+    SPB 300 a block has more subgroups than its CTA has threads), on
+    BLOCK_PROBE_BLOCKS blocks, some with cid -1: key and lane bit for
+    bit."""
+    n = BLOCK_PROBE_BLOCKS
+    tbl, feats, gen = t_block.make_inputs(n_sub=400, K=32, device=cuda,
+                                          seed=G * SPB)
+    tbl = tbl[:, :G].contiguous()
+    subs, cids = t_block.block_ids(n, SPB, 400, 32, gen)
+    cids[::37] = -1
+    tblc = torch.randn((n, G * SPB, 16), generator=gen, device=cuda) \
+        if variant == "contig_tbl" else None
+    args = (variant, G, SPB, subs, cids, tbl, feats, tblc)
+    check_equal(t_block.run_block(*args), t_block.run_block_plain(*args),
+                f"P4 {variant} G={G} SPB={SPB}")
+
+
+@pytest.mark.parametrize("variant", t_block.VARIANTS)
+def test_block_probe_kernel_on_adversarial_dets(cuda, variant):
+    """P4 on tables whose dets are +-0, subnormal, 2^+-126-scale, huge,
+    +-inf and NaN and whose quotients sit on the u and v clauses' edges
+    (``torch_adversarial.block_probe_case``), BLOCK_PROBE_BLOCKS blocks:
+    key and lane bit for bit with the plain version, so the kernel's
+    division-free pre-test refuses no pair the exact clauses accept."""
+    n = BLOCK_PROBE_BLOCKS
+    tbl, feats = (torch.as_tensor(x, device=cuda)
+                  for x in block_probe_case(K=16, n_sub=64, G=32))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    subs, cids = t_block.block_ids(n, 8, 64, 16, gen)
+    cids[::37] = -1
+    tblc = tbl[subs.long()].reshape(n, 256, 16).contiguous()
+    args = (variant, 32, 8, subs, cids, tbl, feats, tblc)
+    want = t_block.run_block_plain(*args)
+    check_equal(t_block.run_block(*args), want, f"P4 {variant} adversarial")
     hits = want[0] != INT32_MAX
     assert bool(hits.any()) and (variant == "mm_only" or not hits.all())
 

@@ -1,6 +1,6 @@
-"""Adversarial inputs of kernels K1 (phase A) and K6 (the dense sweep),
-and the Morton-ordered ray grid of the multiwave tests, made with NumPy
-from a seed.
+"""Adversarial inputs of kernels K1 (phase A) and K6 (the dense sweep) and
+of the probes P2's and P4's epilogues, and the Morton-ordered ray grid of
+the multiwave tests, made with NumPy from a seed.
 
 This module imports no JAX: the card tests (test_torch_kernels.py) use
 the same inputs as the CPU tests. Every function returns float32 NumPy
@@ -207,3 +207,69 @@ def morton_grid(side, half=0.75, z=3.0):
     o = np.ascontiguousarray(o[np.argsort(code.reshape(-1), kind="stable")])
     d = np.broadcast_to(np.array([0.0, 0.0, -1.0], F32), o.shape)
     return o, np.ascontiguousarray(d)
+
+
+# The probe P4: dets the pre-test must handle (signed zeros, subnormals,
+# 2^+-126 scales, overflowing magnitudes, infinities, NaN) and the
+# quotients u = udet / det and v = vdet / det aimed at: each clause's edge
+# (-e and 1 + e exactly as float32), v past 1 + e where u = -e lets u + v
+# pass, and plain values inside and outside.
+BLOCK_DETS = tuple(s * sg for s in (
+    0.0, 2.0 ** -149, 3 * 2.0 ** -140, 2.0 ** -128, 2.0 ** -126,
+    2.0 ** -100, 1e-30, 0.37, 1.0, 3.0, 2.0 ** 100, 2.0 ** 126, 2.0 ** 127,
+    float(np.finfo(F32).max), np.inf) for sg in (1.0, -1.0)) + (np.nan,)
+BLOCK_QUOTIENTS = (-1e-5, 1 + 1e-5, 0.0, -0.0, 0.25, 0.5, 1.0, -0.5, 2.0,
+                   1 + 1.5e-5, 1 + 2e-5)
+
+
+def block_probe_case(K=16, n_sub=64, G=32, seed=0):
+    """(tbl (n_sub + 1, G, 16), feats (K, 16, 4 * 128)) for P4, whose
+    products are set lane by lane: the tables' feature row 0 holds det,
+    udet, vdet and tdet, rows 1-15 are zero, and every row's column 0 is 1,
+    so det is feature row 0's value (+-0 may change sign). det from
+    BLOCK_DETS; udet and vdet det times a quotient of BLOCK_QUOTIENTS,
+    rounded, moved by up to 2 ulps either way (so a quotient lands on, just
+    inside and just outside a clause's edge); tdet det / 2, or a special
+    value. The last cluster holds random bit patterns. Rows: t in [-1, 2],
+    every 7th an empty range (t_min 1 > t_max 0), every 11th a NaN t_min."""
+    rng = np.random.default_rng(seed)
+    C = 128
+    det = rng.choice(np.array(BLOCK_DETS, F32), (K, C))
+    quot = np.array(BLOCK_QUOTIENTS, F32)
+
+    def numerator():
+        with np.errstate(all="ignore"):
+            x = (det * rng.choice(quot, (K, C))).astype(F32)
+            step = rng.integers(-2, 3, (K, C))
+            for k in (1, 2):
+                x = np.where(step >= k, np.nextafter(x, F32(np.inf)), x)
+                x = np.where(step <= -k, np.nextafter(x, F32(-np.inf)), x)
+        return x
+
+    udet, vdet = numerator(), numerator()
+    with np.errstate(all="ignore"):
+        tdet = (det * F32(0.5)).astype(F32)
+    tdet[:, ::9] = rng.choice(np.array(BLOCK_DETS, F32), (K, -(-C // 9)))
+    feats = np.zeros((K, 16, 4 * C), F32)
+    feats[:, 0] = np.concatenate([det, udet, vdet, tdet], 1)
+    bits = rng.integers(0, 2 ** 32, (4 * C,), dtype=np.uint64)
+    feats[-1, 0] = bits.astype(np.uint32).view(F32)
+    tbl = rng.standard_normal((n_sub + 1, G, 16)).astype(F32)
+    tbl[..., 0] = 1.0
+    tbl[..., 13], tbl[..., 14] = -1.0, 2.0
+    flat = tbl.reshape(-1, 16)
+    flat[::7, 13], flat[::7, 14] = 1.0, 0.0
+    flat[::11, 13] = np.nan
+    return tbl, feats
+
+
+def epilogue_probe_case(TILE, n_tiles, seed=0):
+    """(phi (n_tiles * TILE, 16), feats (n_tiles, 16, 4 * 128)) for P2,
+    whose products sit on the pre-test's special dets and the clauses'
+    edges: feats from ``block_probe_case`` (feature row 0 holds det, udet,
+    vdet, tdet; the other rows are zero), phi's column 0 is 1."""
+    _, feats = block_probe_case(K=n_tiles, n_sub=1, G=1, seed=seed)
+    rng = np.random.default_rng(seed)
+    phi = rng.standard_normal((n_tiles * TILE, 16)).astype(F32)
+    phi[:, 0] = 1.0
+    return phi, feats
