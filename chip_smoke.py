@@ -64,9 +64,13 @@ count set to 0 just before it and read just after:
  15-18. the card probes (raycore_tpu_torch/tools/), each at its tool's
      default shapes: every variant of its kernel against its plain
      version, then the tool's rows through the tool's main(), which is
-     the path whose launches are counted: 15 the row gather (P1; loop
-     and onehot each an entry of the kernels line, onehot's with the
-     time of its products at the bf16 peak beside its bound), 16 the
+     the path whose launches are counted: 15 the row gather (P1; loop,
+     onehot and take each an entry of the kernels line, onehot's with the
+     time of its products at the bf16 peak beside its bound; loop and
+     take bit for bit their kernel-order model, their tier, their rate
+     over the rows fetched and the card's on-chip ceiling, their times on
+     indices free of bank conflicts, and both tiers timed side by side
+     across table sizes), 16 the
      worklist epilogue variants (P2; every variant at the tool's 8,192
      blocks under both seeds, the accepted share under the tool's key0
      seed, which accepts nothing, and under a finite one), 17 the
@@ -181,8 +185,8 @@ the headline and on the rounds engine's headline query; K2 three
 times: on the headline, on the blobby cell's multiwave path and on the
 256-instance frame in its pairrow mode; K1 and K2 once more on the
 path-traced frame, with one frame's launches and the sums of their
-times and bounds over its 8 queries; the probe P1 twice, its loop and
-onehot kernels); the line
+times and bounds over its 8 queries; the probe P1 three times, its
+loop, onehot and take kernels); the line
 before it the script's wall time; the last line is {"ok": true,
 "device": {...}}.
 """
@@ -359,6 +363,9 @@ SHARD_TIMEOUT_S = 300
 # The card probes' sizes, the tools' defaults: P1's table rows and steps,
 # P2's TILE and blocks, P4's blocks.
 GATHER_SHAPE = (8192, 2048)
+# Table rows at which phase 15 times P1's loop and take in both tiers, the
+# measurement behind gather_probe.SLICE_ROWS.
+GATHER_SWEEP = (16, 1024, 2048, 4096, 5120, 6144, 7168, 8192, 10432)
 EPILOGUE_SHAPE = (512, 8192)
 PROBE_BLOCKS = 8192
 # Tiles of each worklist cell (phases 8-11) that K3 and K4 are held to
@@ -2049,31 +2056,73 @@ def probe_result(name, replaces, launches, err, ms, plain_ms, b, library_ms,
                 path=path, products_bound=products_bound)
 
 
+def gather_in_tier(p1, idx, tbl, variant, tier):
+    """P1's ``variant`` in ``tier`` (4 or 0), whatever ``gather_tier``
+    picks: the launcher's entry called directly, to time the tiers side
+    by side. Not counted as a launch."""
+    from raycore_tpu_torch.tools._common import launch
+
+    out = torch.empty((idx.shape[0] // p1.R, p1.W), device=idx.device)
+    launch("gather_probe", idx.device, idx.data_ptr(), tbl.data_ptr(),
+           out.data_ptr(), tbl.shape[0], out.shape[0],
+           p1.VARIANTS.index(variant), tier)
+    return out
+
+
+def bank_aligned(idx, variant, R):
+    """``idx`` with each index moved within its aligned group of 8 rows so
+    that the 8 lanes of a quarter warp of ``variant``'s shared-memory
+    kernel read 8 distinct 16-byte bank groups (row % 8 == lane % 8): in
+    ``loop`` lane l holds step 32 n + l, in ``take`` lane l reads
+    positions 128 k + 4 l + j of its step. The rows stay uniform over a
+    table of a multiple of 8 rows, and the index stream is unchanged."""
+    pos = torch.arange(idx.numel(), device=idx.device)
+    lane = pos // R if variant == "loop" else pos % R // 4
+    return idx - idx % 8 + (lane % 8).to(idx.dtype)
+
+
 def gather_phase(phase, p1, dev, read_counts, zero_counts):
     """P1 at the tool's default shapes, an (8192, 128) table and 2,048
     steps of 512 fetches: every variant against its plain version within
-    ``gather_probe.tolerance``; the one-hot entries a K-tile the onehot
-    kernel sets; the tool's rows through its main() on the same data, the
-    launches counted there and its times (best of 5) those of the kernels
-    line. Two entries there: ``loop`` and ``onehot``, each beside its own
-    plain version and ``index_select`` and a sum (the tool's ``xla`` row).
-    Bound of both, the function's: the indices, the table and the output
-    moved once, one addition per fetched element. ``onehot`` also states
-    the bound of the products it computes, 2 * 512 * NN * 128 a step at
-    the bf16 peak (``products_bound_ms``)."""
+    ``gather_probe.tolerance``; ``loop`` and ``take`` bit for bit against
+    ``run_gather_model`` in their tier (``gather_tier``); the tool's rows
+    through its main() on the same data, the launches counted there and
+    its times (best of 5 samples of ``CALLS`` calls) those of the kernels
+    line. Three entries there:
+    ``loop``, ``onehot`` and ``take``, each beside its own plain version
+    and ``index_select`` and a sum (the tool's ``xla`` row). Bound of all
+    three, the function's: the indices, the table and the output moved
+    once, one addition per fetched element. ``onehot`` also states the
+    bound of the products it computes, 2 * 512 * NN * 128 a step at the
+    bf16 peak (``products_bound_ms``). Printed beside ``loop`` and
+    ``take``: the rate of the rows fetched (steps * 512 * 512 bytes) and
+    the on-chip ceiling, those bytes through every SM's load path at 128
+    bytes a clock at the card's maximum SM clock; their times on
+    ``bank_aligned`` indices, the same index stream with gathers free of
+    bank conflicts; and both tiers at each of ``GATHER_SWEEP``'s table
+    rows, each bit for bit its model, beside the tier ``gather_tier``
+    picks."""
+    from raycore_tpu_torch.tools._common import best_ms, check_equal
+
     NN, steps = GATHER_SHAPE
     idx, tbl = p1.make_inputs(NN, steps, dev)
+    tier = p1.gather_tier(NN)
     errs = {}
     for v in p1.VARIANTS:
-        err = (p1.run_gather(idx, tbl, v) - p1.run_gather_plain(idx, tbl, v)) \
-            .abs()
+        got = p1.run_gather(idx, tbl, v)
+        err = (got - p1.run_gather_plain(idx, tbl, v)).abs()
         ratio = float((err / p1.tolerance(idx, tbl, v)).max())
         if ratio > 1:
             raise AssertionError(f"P1 {v}: error {ratio:.3g} x the bound")
         errs[v] = float(err.max())
+        if v != "onehot":
+            check_equal(got, p1.run_gather_model(idx, tbl, v, tier),
+                        f"P1 {v} against its model, tier {tier}")
     say(phase, "gather probe: " + ", ".join(
         f"{v} max err {e:.3g}" for v, e in errs.items())
-        + " (within 2^-14 of the fetched magnitudes); the tool's rows:")
+        + " (within 2^-14 of the fetched magnitudes); loop and take bit "
+          f"for bit their model in tier {tier} (columns a shared-memory "
+          "slice; 0: the L2 tier); the tool's rows:")
     zero_counts()
     rows = {r["variant"]: r["ms"] for r in p1.main(NN, steps, reps=5,
                                                    device=dev)}
@@ -2083,26 +2132,71 @@ def gather_phase(phase, p1, dev, read_counts, zero_counts):
     ms = {v: rows[v] for v in p1.VARIANTS}
     library_ms = rows["library"]
     plain_ms = {v: cuda_ms(lambda v=v: p1.run_gather_plain(idx, tbl, v), 3)
-                for v in ("loop", "onehot")}
+                for v in p1.VARIANTS}
     moved = nbytes(idx, tbl) + steps * p1.W * 4
     b = bound(moved, idx.numel() * p1.W)
     products = 2 * p1.R * NN * p1.W * steps / PEAK_BF16_FLOPS * 1e3
+    fetched = idx.numel() * p1.W * 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    ceiling = fetched / (sms * 128 * mhz * 1e6) * 1e3
+    # Every slice reads every index: the index stream of the slices.
+    streamed = (p1.W // 4) * nbytes(idx) if tier else nbytes(idx)
+    aligned_ms = {}
+    for v in ("loop", "take"):
+        ids = bank_aligned(idx, v, p1.R)
+        check_equal(p1.run_gather(ids, tbl, v),
+                    p1.run_gather_model(ids, tbl, v, tier),
+                    f"P1 {v} against its model, bank-aligned indices")
+        aligned_ms[v] = best_ms(lambda v=v, ids=ids: p1.run_gather(ids, tbl, v),
+                                5, p1.CALLS)
     say(phase, f"gather probe (NN {NN}, {steps} steps): " + ", ".join(
         f"{v} {t:.4f} ms" for v, t in ms.items())
-        + f"; plain loop {plain_ms['loop']:.4f} ms, onehot "
-          f"{plain_ms['onehot']:.4f} ms; library {library_ms:.4f} ms; bound "
-          f"{b[0]:.4f} ms ({b[1]}); onehot {ms['onehot'] / b[0]:.0f}x that "
-          f"bound and {ms['onehot'] / library_ms:.2f}x the library; the "
-          f"products onehot computes at the bf16 peak {products:.4f} ms, "
+        + "; plain " + ", ".join(f"{v} {t:.4f} ms"
+                                 for v, t in plain_ms.items())
+        + f"; library {library_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); "
+          f"onehot {ms['onehot'] / b[0]:.0f}x that bound and "
+          f"{ms['onehot'] / library_ms:.2f}x the library; the products "
+          f"onehot computes at the bf16 peak {products:.4f} ms, "
           f"{products / ms['onehot']:.1%} of its time; launches "
           f"{launches}, by variant {by_variant}")
-    return [probe_result("gather_probe", "tools/tpu_gather_probe.py:39",
-                         by_variant["loop"], errs["loop"], ms["loop"],
-                         plain_ms["loop"], b, library_ms, path="loop"),
-            probe_result("gather_probe", "tools/tpu_gather_probe.py:46",
-                         by_variant["onehot"], errs["onehot"], ms["onehot"],
-                         plain_ms["onehot"], b, library_ms, path="onehot",
-                         products_bound=products)]
+    say(phase, f"gather probe loop and take, tier {tier}: {fetched} bytes "
+               f"of rows fetched; on-chip ceiling {ceiling:.4f} ms ({sms} "
+               f"SMs x 128 B a clock at {mhz} MHz); " + ", ".join(
+                   f"{v} {fetched / ms[v] / 1e9:.2f} TB/s, "
+                   f"{ceiling / ms[v]:.1%} of the ceiling and "
+                   f"{b[0] / ms[v]:.1%} of the bound" for v in ("loop",
+                                                                "take"))
+               + f"; index stream {streamed} bytes, "
+               + ", ".join(f"{v} {streamed / ms[v] / 1e9:.2f} TB/s"
+                           for v in ("loop", "take"))
+               + "; on bank-aligned indices (the same stream, no bank "
+                 "conflicts; bit for bit the model): "
+               + ", ".join(f"{v} {t:.4f} ms, index stream "
+                           f"{streamed / t / 1e9:.2f} TB/s"
+                           for v, t in aligned_ms.items()))
+    for n in GATHER_SWEEP:
+        ids, t = p1.make_inputs(n, steps, dev, seed=n)
+        tiers = {}
+        for v in ("loop", "take"):
+            for k in (4, 0):
+                check_equal(gather_in_tier(p1, ids, t, v, k),
+                            p1.run_gather_model(ids, t, v, k),
+                            f"P1 {v} in tier {k}, NN {n}, against its model")
+                tiers[v, k] = best_ms(
+                    lambda v=v, k=k: gather_in_tier(p1, ids, t, v, k), 5,
+                    p1.CALLS)
+        say(phase, f"gather probe tiers, NN {n}, {steps} steps: " + ", ".join(
+            f"{v} slices {tiers[v, 4]:.4f} ms, L2 {tiers[v, 0]:.4f} ms"
+            for v in ("loop", "take")) + f"; gather_tier {p1.gather_tier(n)}")
+    return [probe_result("gather_probe", f"tools/tpu_gather_probe.py:{line}",
+                         by_variant[v], errs[v], ms[v], plain_ms[v], b,
+                         library_ms, path=v,
+                         products_bound=products if v == "onehot" else None)
+            for v, line in (("loop", 39), ("onehot", 46), ("take", 56))]
 
 
 def epilogue_phase(phase, p2, dev, read_counts, zero_counts):

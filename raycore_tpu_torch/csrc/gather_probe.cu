@@ -5,34 +5,56 @@
 //
 // Per step s: out[s] = the sum of the 512 rows tbl[idx[512 s + i]] of an
 // (NN, 128) float32 table (the onehot variant: of the table rounded to
-// bfloat16, summed in float32). On the TPU the table sits in VMEM; here a
-// 4 MB table (NN = 8,192) does not fit in shared memory but sits in the
-// 50 MB L2, so every fetch is an L2 hit after the first pass.
+// bfloat16, summed in float32). On the TPU the table sits in VMEM, next to
+// the compute. Here a 4 MB table (NN = 8,192) does not fit one SM's shared
+// memory, but a 4-column slice of it does: LOOP and TAKE keep one slice a
+// CTA in shared memory (the shared-memory tier) over the row counts where
+// that was measured faster than reading whole rows from the 50 MB L2 (the
+// L2 tier). The host picks the tier from NN alone
+// (tools/gather_probe.py:gather_tier) and passes it as `cols`: 4 or 0.
 //
-// Variants:
+// Shared-memory tier (4 columns a slice, one float4 a row):
+//   A grid of 32 column slices x max(1, SMs / 32) step groups, so that
+//   every CTA runs in one wave, one CTA an SM: 32 x 4 on 132 SMs. A CTA
+//   stages its slice, NN rows of 16 bytes, once, then walks its group's
+//   steps:
+//   LOOP    one thread per step adds its 4 columns in index order, 0..511,
+//           as the TPU's loop does. A warp's 32 steps read their indices in
+//           chunks of 8 through a per-warp ring of 4 chunks in shared
+//           memory, filled by cp.async 3 chunks ahead, 32 bytes a step.
+//   TAKE    one warp per step: lane l adds rows 128 k + 4 l + j (k, j in
+//           0..3, in that order) from four coalesced 16-byte index loads,
+//           then a fixed xor-shuffle tree (16, 8, 4, 2, 1) adds the lanes.
+// L2 tier (every other NN):
 //   LOOP    one warp per step walks the step's 512 indices in order; lane l
 //           accumulates columns 4l..4l+3 (one float4 per lane, so each row
-//           fetch is one coalesced 512-byte read). 2,048 steps make only
-//           2,048 warps: the card is far from full, as the TPU's loop is one
-//           scalar-indexed read after another.
+//           fetch is one coalesced 512-byte read).
 //   TAKE    one CTA of 8 warps per step: warp w fetches rows w, w + 8, ...
 //           (64 rows, four in flight), then the 8 partial sums are added in
 //           warp order through shared memory.
-//   ONEHOT  the (512, NN) bf16 one-hot tile of a step times the bf16 table
-//           on the tensor cores (wgmma m64n128k16 from shared memory,
-//           float32 accumulate), the sum over the 512 rows folded into the
-//           accumulator, then its last 64 rows added in a fixed order. It
-//           does every product of the one-hot matrix: 2 * 512 * NN * 128
-//           operations per step, against 512 * 128 additions for the
-//           gathers. Design: below, at gather_onehot_kernel.
+//   ONEHOT  (either tier) the (512, NN) bf16 one-hot tile of a step times
+//           the bf16 table on the tensor cores (wgmma m64n128k16 from
+//           shared memory, float32 accumulate), the sum over the 512 rows
+//           folded into the accumulator, then its last 64 rows added in a
+//           fixed order. It does every product of the one-hot matrix: 2 *
+//           512 * NN * 128 operations per step, against 512 * 128 additions
+//           for the gathers. Design: below, at gather_onehot_kernel.
+// Each output element comes from one fixed sequence of float32 roundings
+// (tools/gather_probe.py:run_gather_model), with no atomics.
 //
-// What bounds it on this card: the gathers (LOOP, TAKE) the L2's latency and
-// bandwidth (the table is read from device memory once; the bound counts
-// that, the indices and the output, and one addition per fetched element);
-// ONEHOT the tensor cores' rate (989 TFLOP/s in bf16). One-hot operands
-// built in registers cost about 11 integer instructions a product, so the
-// one-hot tile lives in shared memory, where only about 2 of its 512 rows
-// change a K-tile; each table tile is staged once for two steps.
+// What bounds it on this card: the function moves the table, the indices
+// and the output once (the bound counts that and one addition per fetched
+// element), but every fetched row passes an SM's load path: 512 B a fetch,
+// 536.9 MB at the tool's defaults, over 132 SMs x 128 B a clock. The L2
+// tier reads those bytes from the L2, at about its bandwidth. The
+// shared-memory tier reads them from the SMs' own shared memory, where a
+// warp's 32 random rows collide in the banks; those conflicts, not the
+// index stream (every slice reads every index from the L2, while the
+// gathers run), set its time (PERF.md, P1). ONEHOT is bound by the
+// tensor cores' rate (989 TFLOP/s in bf16). One-hot operands built in
+// registers cost about 11 integer instructions a product, so the one-hot
+// tile lives in shared memory, where only about 2 of its 512 rows change
+// a K-tile; each table tile is staged once for two steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,7 +70,13 @@ constexpr int WARPS = 8;     // warps per CTA
 
 enum Variant { LOOP = 0, ONEHOT = 1, TAKE = 2 };
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float2 add(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
@@ -67,7 +95,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 #pragma unroll 4
     for (int j = 0; j < 32; ++j) {
       const int row = __shfl_sync(0xffffffffu, mine, j);
-      acc = add4(acc, __ldg(tbl4 + (size_t)row * (W / 4) + lane));
+      acc = add(acc, __ldg(tbl4 + (size_t)row * (W / 4) + lane));
     }
   }
   out4[(size_t)s * (W / 4) + lane] = acc;
@@ -83,15 +111,214 @@ __global__ void __launch_bounds__(WARPS * 32)
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
   for (int i = w; i < R; i += WARPS)
-    acc = add4(acc, __ldg(tbl4 + (size_t)ids[i] * (W / 4) + lane));
+    acc = add(acc, __ldg(tbl4 + (size_t)ids[i] * (W / 4) + lane));
   part[w][lane] = acc;
   __syncthreads();
   if (w == 0) {
     float4 sum = part[0][lane];
 #pragma unroll
-    for (int k = 1; k < WARPS; ++k) sum = add4(sum, part[k][lane]);
+    for (int k = 1; k < WARPS; ++k) sum = add(sum, part[k][lane]);
     out4[(size_t)blockIdx.x * (W / 4) + lane] = sum;
   }
+}
+
+// The shared-memory tier. A slice (SLICE_BYTES a row) and, for LOOP, the
+// warps' index rings must fit in the card's opt-in shared memory a block;
+// the launch refuses a table whose slice does not.
+constexpr int SLICES = W / 4;                    // 4-column slices
+constexpr int SLICE_BYTES = 16;                  // a row of a slice
+constexpr int SM_WARPS = 16;
+constexpr int SM_THREADS = SM_WARPS * 32;
+constexpr int CHUNK = 8;                         // indices a step stages
+constexpr int RING = 4;                          // chunks a warp's ring holds
+constexpr int SLOTS = CHUNK / 4 * 32;            // int4 slots of a chunk
+constexpr int SM_IDX_BYTES = SM_WARPS * RING * SLOTS * 16;   // 64 KB
+
+__device__ __forceinline__ float shfl_xor(float v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ float2 shfl_xor(float2 v, int m) {
+  return make_float2(shfl_xor(v.x, m), shfl_xor(v.y, m));
+}
+
+// The xor tree m, m / 2, ..., 1 over the warp's lanes of each component:
+// at each level a lane adds its partner's value to its own. A lane keeps
+// only half of the components it carries at each of the first levels
+// (the half its bit m selects) and sends its partner the other half, so
+// the tree takes 2 + 1 + 1 + 1 + 1 shuffles for a float4, not 4 x 5; each
+// component's sums pair as in the full tree. Component c of a float4
+// ends in lane 8 c.
+__device__ __forceinline__ float lane_tree(float v, int lane, int m) {
+  for (; m > 0; m >>= 1) v = add(v, shfl_xor(v, m));
+  return v;
+}
+__device__ __forceinline__ float lane_tree(float2 v, int lane, int m) {
+  const bool hi = lane & m;
+  return lane_tree(add(hi ? v.y : v.x, shfl_xor(hi ? v.x : v.y, m)), lane,
+                   m >> 1);
+}
+__device__ __forceinline__ float lane_tree(float4 v, int lane, int m) {
+  const bool hi = lane & m;
+  const float2 keep = hi ? make_float2(v.z, v.w) : make_float2(v.x, v.y);
+  const float2 send = hi ? make_float2(v.x, v.y) : make_float2(v.z, v.w);
+  return lane_tree(add(keep, shfl_xor(send, m)), lane, m >> 1);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Slot of (quad q, step t) in a warp's chunk of 32 steps x CHUNK indices:
+// step t reads quad q at slot q * 32 + t' with t' a rotation of t within
+// its 8, so that 8 neighbouring lanes, which read one quad of 8 steps or
+// (filling) CHUNK / 4 quads of 32 / CHUNK steps, meet 8 distinct 16-byte
+// bank groups.
+__device__ __forceinline__ int slot(int q, int t) {
+  return q * 32 + ((t & ~7) | ((t + q * (32 / CHUNK)) & 7));
+}
+
+// The CTA's slice of columns 4 blockIdx.x .. + 3, NN rows of a float4,
+// staged into shared memory once.
+__device__ __forceinline__ const float4* stage_slice(
+    const float* __restrict__ tbl, int NN, unsigned char* smem) {
+  float4* slice = reinterpret_cast<float4*>(smem);
+  const float4* src = reinterpret_cast<const float4*>(tbl) + blockIdx.x;
+#pragma unroll 4
+  for (int r = threadIdx.x; r < NN; r += SM_THREADS)
+    slice[r] = __ldg(src + (size_t)r * SLICES);
+  __syncthreads();
+  return slice;
+}
+
+// LOOP, shared-memory tier: CTA (slice, group) takes the steps [s0, s1) of
+// its group in batches of 32 a warp; thread (step s) adds its 4 columns of
+// the step's 512 rows in index order.
+__global__ void __launch_bounds__(SM_THREADS, 1)
+    gather_loop_slices(const int* __restrict__ idx,
+                       const float* __restrict__ tbl, float* __restrict__ out,
+                       int NN, int steps, int per) {
+  extern __shared__ __align__(16) unsigned char slice_smem[];
+  const int s0 = blockIdx.y * per, s1 = min(steps, s0 + per);
+  if (s0 >= s1) return;
+  const float4* slice = stage_slice(tbl, NN, slice_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int4* const ring = reinterpret_cast<int4*>(slice_smem + NN * SLICE_BYTES) +
+                     warp * RING * SLOTS;
+  for (int b = s0 + 32 * warp; b < s1; b += SM_THREADS) {
+    // Chunk k of the 32 steps b..b + 31 into ring slot k % RING, CHUNK / 4
+    // lanes a step. A step past s1 copies step s1 - 1's indices, so its
+    // lane reads valid rows; it stores nothing.
+    const auto fill = [&](int k) {
+      int4* dst = ring + (k % RING) * SLOTS;
+#pragma unroll
+      for (int r = 0; r < CHUNK / 4; ++r) {
+        const int u = 32 * r + lane, t = u / (CHUNK / 4), q = u % (CHUNK / 4);
+        const int step = min(b + t, s1 - 1);
+        cp_async16(dst + slot(q, t),
+                   idx + (size_t)step * R + k * CHUNK + 4 * q);
+      }
+      cp_commit();
+    };
+    float4 acc{};
+#pragma unroll
+    for (int k = 0; k < RING - 1; ++k) fill(k);
+#pragma unroll 4
+    for (int k = 0; k < R / CHUNK; ++k) {
+      // Keep RING - 1 chunks in flight; past the last chunk, empty groups.
+      if (k + RING - 1 < R / CHUNK) fill(k + RING - 1);
+      else cp_commit();
+      cp_wait<RING - 1>();
+      __syncwarp();
+      const int4* src = ring + (k % RING) * SLOTS;
+      int4 id[CHUNK / 4];
+#pragma unroll
+      for (int q = 0; q < CHUNK / 4; ++q) id[q] = src[slot(q, lane)];
+      __syncwarp();   // every lane has read slot k % RING before its refill
+#pragma unroll
+      for (int q = 0; q < CHUNK / 4; ++q) {
+        acc = add(acc, slice[id[q].x]);
+        acc = add(acc, slice[id[q].y]);
+        acc = add(acc, slice[id[q].z]);
+        acc = add(acc, slice[id[q].w]);
+      }
+    }
+    if (b + lane < s1)
+      reinterpret_cast<float4*>(out + (size_t)(b + lane) * W)[blockIdx.x] =
+          acc;
+  }
+}
+
+// TAKE, shared-memory tier: warp w takes steps s0 + w, s0 + w + 16, ...;
+// lane l adds rows 128 k + 4 l + j (k-major, then j) of its slice, then the
+// lanes are added by the xor tree 16, 8, 4, 2, 1 (lane_tree). The next
+// step's indices are loaded while this step's rows are added.
+__global__ void __launch_bounds__(SM_THREADS, 1)
+    gather_take_slices(const int* __restrict__ idx,
+                       const float* __restrict__ tbl, float* __restrict__ out,
+                       int NN, int steps, int per) {
+  extern __shared__ __align__(16) unsigned char slice_smem[];
+  const int s0 = blockIdx.y * per, s1 = min(steps, s0 + per);
+  if (s0 >= s1) return;
+  const float4* slice = stage_slice(tbl, NN, slice_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const auto load = [&](int s, int4 (&dst)[4]) {
+    const int4* src = reinterpret_cast<const int4*>(idx + (size_t)s * R) + lane;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dst[k] = __ldg(src + 32 * k);
+  };
+  int4 id[4];
+  if (s0 + warp < s1) load(s0 + warp, id);
+  for (int s = s0 + warp; s < s1; s += SM_WARPS) {
+    int4 cur[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cur[k] = id[k];
+    if (s + SM_WARPS < s1) load(s + SM_WARPS, id);
+    float4 acc{};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc = add(acc, slice[cur[k].x]);
+      acc = add(acc, slice[cur[k].y]);
+      acc = add(acc, slice[cur[k].z]);
+      acc = add(acc, slice[cur[k].w]);
+    }
+    const float sum = lane_tree(acc, lane, 16);
+    if (lane % 8 == 0) out[(size_t)s * W + 4 * blockIdx.x + lane / 8] = sum;
+  }
+}
+
+cudaError_t launch_slices(int variant, const int* idx, const float* tbl,
+                          float* out, int NN, int steps, cudaStream_t s) {
+  int dev = 0, sms = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return e;
+  const int groups = sms / SLICES > 1 ? sms / SLICES : 1;
+  const int per = (steps + groups - 1) / groups;
+  const size_t smem = (size_t)NN * SLICE_BYTES +
+                      (variant == LOOP ? SM_IDX_BYTES : 0);
+  if (smem > (size_t)most) return cudaErrorInvalidValue;
+  void (*kernel)(const int*, const float*, float*, int, int, int) =
+      variant == LOOP ? gather_loop_slices : gather_take_slices;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(SLICES, groups), SM_THREADS, smem, s>>>(idx, tbl, out, NN,
+                                                        steps, per);
+  return cudaGetLastError();
 }
 
 // ONEHOT: persistent CTAs of four warpgroups. Warpgroups 0 and 1 each
@@ -288,17 +515,24 @@ __global__ void __launch_bounds__(OH_THREADS, 1)
 
 extern "C" {
 
-// idx (steps * 512,) int32 in [0, NN); tbl (NN, 128) float32, 16-byte
-// aligned; out (steps, 128) float32. ONEHOT needs NN % 16 == 0. Returns
-// cudaGetLastError().
+// idx (steps * 512,) int32 in [0, NN); tbl (NN, 128) float32; out (steps,
+// 128) float32; all 16-byte aligned. cols: the tier of LOOP and TAKE, 4
+// for the shared-memory slices (refused where a slice does not fit) or 0
+// for the L2 tier; ONEHOT ignores it and needs NN % 16 == 0. Returns the
+// first CUDA error of the launch.
 int raycore_gather_probe(const void* idx, const void* tbl, void* out, int NN,
-                         int steps, int variant, void* stream) {
+                         int steps, int variant, int cols, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* i = static_cast<const int*>(idx);
+  const float* t = static_cast<const float*>(tbl);
+  float* o = static_cast<float*>(out);
+  if (cols != 0 && cols != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (cols == 4 && (variant == LOOP || variant == TAKE))
+    return static_cast<int>(launch_slices(variant, i, t, o, NN, steps, s));
   switch (variant) {
     case LOOP:
       gather_loop_kernel<<<(steps + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
-          i, static_cast<const float4*>(tbl), static_cast<float4*>(out),
+          i, reinterpret_cast<const float4*>(t), reinterpret_cast<float4*>(o),
           steps);
       break;
     case ONEHOT: {
@@ -311,13 +545,12 @@ int raycore_gather_probe(const void* idx, const void* tbl, void* out, int NN,
       if (e != cudaSuccess) return static_cast<int>(e);
       const int pairs = (steps + 1) / 2;
       gather_onehot_kernel<<<pairs < sms ? pairs : sms, OH_THREADS, OH_SMEM,
-                             s>>>(i, static_cast<const float*>(tbl),
-                                  static_cast<float*>(out), NN, steps);
+                             s>>>(i, t, o, NN, steps);
       break;
     }
     case TAKE:
       gather_take_kernel<<<steps, WARPS * 32, 0, s>>>(
-          i, static_cast<const float4*>(tbl), static_cast<float4*>(out));
+          i, reinterpret_cast<const float4*>(t), reinterpret_cast<float4*>(o));
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "raycore_packed_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _F, _P),
     "raycore_brute_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "raycore_gather_probe": (_P, _P, _P, _I, _I, _I, _P),
+    "raycore_gather_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
     "raycore_epilogue_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                _F, _P),
     "raycore_epilogue_rcp_check": (_I, _P, _P),

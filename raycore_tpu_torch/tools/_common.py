@@ -14,19 +14,21 @@ EPS = float(np.float32(1e-5))
 ONE_EPS = float(np.float32(1 + 1e-5))
 
 
-def best_ms(fn, reps: int) -> float:
+def best_ms(fn, reps: int, calls: int = 1) -> float:
     """Least device time in ms of one call of ``fn`` over ``reps`` timed
-    calls after one warm-up call (CUDA events around each call)."""
+    samples after one warm-up call: CUDA events around ``calls``
+    back-to-back calls, the time divided by ``calls``."""
     fn()
     best = float("inf")
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end))
+        best = min(best, start.elapsed_time(end) / calls)
     return best
 
 

@@ -19,8 +19,9 @@ from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
 from raycore_tpu_torch.tools._common import best_ms, check_equal
-from torch_adversarial import (PHASE_A_CASES, block_probe_case, brute_case,
-                               epilogue_probe_case, morton_grid,
+from torch_adversarial import (GATHER_CASES, PHASE_A_CASES,
+                               block_probe_case, brute_case,
+                               epilogue_probe_case, gather_case, morton_grid,
                                phase_a_case, phase_a_signed_zeros)
 
 pytestmark = pytest.mark.cuda
@@ -907,6 +908,69 @@ def test_gather_onehot_sets_and_clears_its_tile(cuda, case):
     want = t_gather.run_gather_plain(idx, tbl, "onehot")
     assert bool(((got - want).abs()
                  <= t_gather.tolerance(idx, tbl, "onehot")).all())
+
+
+# Each end of P1's shared-memory tier and one row past it (the L2 tier).
+GATHER_TIER_ROWS = sorted({max(1, t_gather.SLICE_ROWS[0] - 1),
+                           *t_gather.SLICE_ROWS, t_gather.SLICE_ROWS[1] + 1})
+
+
+@pytest.mark.parametrize("NN", GATHER_TIER_ROWS)
+@pytest.mark.parametrize("variant", ["loop", "take"])
+def test_gather_probe_kernel_equals_model(cuda, variant, NN):
+    """P1's ``loop`` and ``take`` at each end of the shared-memory tier
+    and one row past it, over 37 steps (a whole number of no tier's step
+    groups): bit for bit ``run_gather_model`` in the tier ``gather_tier``
+    picks, and a second launch gives the same bits."""
+    idx, tbl = t_gather.make_inputs(NN, 37, cuda, seed=11)
+    tier = t_gather.gather_tier(NN)
+    got = t_gather.run_gather(idx, tbl, variant)
+    check_equal(got, t_gather.run_gather_model(idx, tbl, variant, tier),
+                f"P1 {variant}, NN {NN}, tier {tier}, against its model")
+    check_equal(t_gather.run_gather(idx, tbl, variant), got,
+                f"P1 {variant}, NN {NN}, a second launch")
+
+
+def test_gather_probe_refuses_a_slice_that_does_not_fit(cuda):
+    """The launcher's shared-memory tier at the most rows whose slice and
+    the loop's 64 KB of index rings fit in the card's opt-in shared memory
+    a block (bit for bit the model), and one row past it: refused at the
+    launch, which raises, and nothing runs in its place."""
+    from raycore_tpu_torch.tools._common import launch
+
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    most = (optin - 65_536) // 16
+    assert most >= t_gather.SLICE_ROWS[1]
+    for NN in (most, most + 1):
+        idx, tbl = t_gather.make_inputs(NN, 3, cuda, seed=12)
+        out = torch.full((3, t_gather.W), float("nan"), device=cuda)
+        args = (idx.data_ptr(), tbl.data_ptr(), out.data_ptr(), NN, 3,
+                t_gather.VARIANTS.index("loop"), 4)
+        if NN == most:
+            launch("gather_probe", cuda, *args)
+            check_equal(out, t_gather.run_gather_model(idx, tbl, "loop", 4),
+                        "P1 loop, the largest slice that fits")
+        else:
+            with pytest.raises(RuntimeError, match="gather_probe"):
+                launch("gather_probe", cuda, *args)
+            torch.cuda.synchronize()
+            assert bool(out.isnan().all())
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+@pytest.mark.parametrize("variant", ["loop", "take"])
+def test_gather_probe_edge_cases_equal_model(cuda, variant, case):
+    """P1's ``loop`` and ``take`` on ``torch_adversarial.gather_case``: one
+    table row, a row count not a whole number of 4, fewer steps than step
+    groups, every index on one row, magnitudes near 2^100 and below
+    2^-100. Bit for bit ``run_gather_model``; within tolerance of plain."""
+    idx, tbl = (torch.as_tensor(x, device=cuda) for x in gather_case(case))
+    got = t_gather.run_gather(idx, tbl, variant)
+    check_equal(got, t_gather.run_gather_model(
+        idx, tbl, variant, t_gather.gather_tier(tbl.shape[0])),
+        f"P1 {variant} on {case}, against its model")
+    assert bool(((got - t_gather.run_gather_plain(idx, tbl, variant)).abs()
+                 <= t_gather.tolerance(idx, tbl, variant)).all())
 
 
 @pytest.mark.parametrize("prec,dtype", [("highest", torch.float32),

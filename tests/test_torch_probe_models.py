@@ -1,6 +1,9 @@
-"""The arithmetic of the probe P4's kernel (``csrc/block_probe.cu``) on the
-CPU: its division-free pre-test (``probe_block_overhead.uv_may_pass``) and
-the block routed through it (``run_block_model``).
+"""The arithmetic of the probes P4 and P1 on the CPU. P4's kernel
+(``csrc/block_probe.cu``): its division-free pre-test
+(``probe_block_overhead.uv_may_pass``) and the block routed through it
+(``run_block_model``). P1's ``loop`` and ``take``: their kernel-order model
+in each tier (``gather_probe.run_gather_model``) against the plain version,
+and the tier ``gather_tier`` picks at each slice width's limit.
 
 The kernel divides u = udet / det, v = vdet / det and t = tdet / det only
 for the (row, lane) pairs the pre-test lets through. So the pre-test must
@@ -19,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools._common import EPS, ONE_EPS
-from torch_adversarial import BLOCK_DETS, block_probe_case
+from torch_adversarial import (BLOCK_DETS, GATHER_CASES, block_probe_case,
+                               gather_case)
 
 F32 = np.float32
 INT32_MAX = 0x7FFFFFFF
@@ -194,3 +199,68 @@ def test_model_divides_a_small_share_of_the_tool_pairs():
                                          feats)
     share = refused / (8 * 32 * 8 * t_block.C)
     assert 0.8 < share < 0.99, share
+
+
+# P1: tools/gather_probe.py.
+
+# The distinct orders of P1's kernels: loop adds in index order in both
+# tiers; take has one order a tier.
+GATHER_ORDERS = [("loop", 4), ("take", 4), ("take", 0)]
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+@pytest.mark.parametrize("variant,tier", GATHER_ORDERS)
+def test_gather_model_within_tolerance_of_plain(variant, tier, case):
+    """The kernel-order sums of ``loop`` and ``take`` in each order
+    against ``run_gather_plain`` (another order of the same float32
+    additions): within ``gather_probe.tolerance``, 2^-14 of the fetched
+    magnitudes, on the tool's data and on the edge shapes and magnitudes
+    the card tests give the kernels; and finite."""
+    idx, tbl = (torch.as_tensor(x) for x in gather_case(case))
+    got = t_gather.run_gather_model(idx, tbl, variant, tier)
+    want = t_gather.run_gather_plain(idx, tbl, variant)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs()
+                 <= t_gather.tolerance(idx, tbl, variant)).all())
+
+
+def test_gather_model_take_tiers_differ_in_order():
+    """The L2 tier's take (8 warp sums) and the shared-memory tier's (32
+    lane sums, then a tree) round differently, and loop, in index order
+    in both tiers, differs from both: the card tests' bit-for-bit checks
+    tell the tiers apart."""
+    idx, tbl = (torch.as_tensor(x) for x in gather_case("tool"))
+    take = {t: t_gather.run_gather_model(idx, tbl, "take", t) for t in (4, 0)}
+    loop = {t: t_gather.run_gather_model(idx, tbl, "loop", t) for t in (4, 0)}
+    assert torch.equal(loop[4], loop[0])
+    assert not torch.equal(take[4], take[0])
+    assert not torch.equal(loop[4], take[4])
+    assert not torch.equal(loop[0], take[0])
+
+
+def test_gather_model_refuses_onehot_and_unknown_tiers():
+    idx, tbl = (torch.as_tensor(x) for x in gather_case("tool"))
+    with pytest.raises(ValueError, match="onehot"):
+        t_gather.run_gather_model(idx, tbl, "onehot", 4)
+    for tier in (1, 2, 3):
+        with pytest.raises(ValueError, match="tier"):
+            t_gather.run_gather_model(idx, tbl, "take", tier)
+
+
+@pytest.mark.parametrize("end", [0, 1])
+def test_gather_tier_at_each_end_of_its_rows(end):
+    """``gather_tier`` takes the shared-memory tier (4 columns a slice) at
+    each end of ``SLICE_ROWS`` and the L2 tier (0) one row past it."""
+    rows = t_gather.SLICE_ROWS[end]
+    past = rows + (1 if end else -1)
+    assert t_gather.gather_tier(rows) == 4
+    assert t_gather.gather_tier(past) == 0
+
+
+def test_gather_tier_of_the_tool_shapes():
+    """The tool's default table (NN 8,192) takes 4-column slices; 1,024
+    rows, where the slices were measured slower, and 65,536 rows, whose
+    slice does not fit, take the L2 tier."""
+    assert t_gather.gather_tier(8192) == 4
+    assert t_gather.gather_tier(1024) == 0
+    assert t_gather.gather_tier(65_536) == 0

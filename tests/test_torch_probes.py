@@ -276,6 +276,36 @@ def test_gather_onehot_block_patterns_match_tool(tool, case):
     assert (np.abs(got.numpy() - ref) <= tol).all()
 
 
+def test_gather_loop_model_equals_tool_bitwise(tool):
+    """``run_gather_model``'s ``loop`` in both tiers (one order) against
+    the tool's loop kernel in interpret mode, on a (64, 128) table over 4
+    steps: both add a step's rows in index order from zero, so bit for
+    bit."""
+    mod = tool("tpu_gather_probe")
+    rng = np.random.default_rng(8)
+    tbl = rng.normal(size=(64, 128)).astype(np.float32)
+    idx = rng.integers(0, 64, 4 * 512).astype(np.int32)
+    ref = _gather_tool(mod, "loop", idx, tbl, 4)
+    for tier in (4, 0):
+        got = t_gather.run_gather_model(_t(idx), _t(tbl), "loop", tier)
+        assert np.array_equal(got.numpy().view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("tier", [4, 0])
+def test_gather_take_model_matches_tool(tool, tier):
+    """``run_gather_model``'s ``take`` in both tiers against the tool's
+    take kernel in interpret mode (``jnp.take`` and a sum, its own order):
+    within ``gather_probe.tolerance``."""
+    mod = tool("tpu_gather_probe")
+    rng = np.random.default_rng(9)
+    tbl = rng.normal(size=(64, 128)).astype(np.float32)
+    idx = rng.integers(0, 64, 4 * 512).astype(np.int32)
+    ref = _gather_tool(mod, "take", idx, tbl, 4)
+    got = t_gather.run_gather_model(_t(idx), _t(tbl), "take", tier).numpy()
+    tol = t_gather.tolerance(_t(idx), _t(tbl), "take").numpy()
+    assert (np.abs(got - ref) <= tol).all()
+
+
 # P2: tools/epilogue_experiments.py.
 
 def _epilogue_inputs(TILE, seed_key, n_tiles=4):

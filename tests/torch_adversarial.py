@@ -1,6 +1,7 @@
-"""Adversarial inputs of kernels K1 (phase A) and K6 (the dense sweep) and
-of the probes P2's and P4's epilogues, and the Morton-ordered ray grid of
-the multiwave tests, made with NumPy from a seed.
+"""Adversarial inputs of kernels K1 (phase A) and K6 (the dense sweep), of
+the probes P2's and P4's epilogues and of P1's gathers, and the
+Morton-ordered ray grid of the multiwave tests, made with NumPy from a
+seed.
 
 This module imports no JAX: the card tests (test_torch_kernels.py) use
 the same inputs as the CPU tests. Every function returns float32 NumPy
@@ -273,3 +274,30 @@ def epilogue_probe_case(TILE, n_tiles, seed=0):
     phi = rng.standard_normal((n_tiles * TILE, 16)).astype(F32)
     phi[:, 0] = 1.0
     return phi, feats
+
+
+# P1's gathers: (NN, steps) and what the case does to the tool's normal
+# table and uniform indices. Every case but the one-row table lies in the
+# shared-memory tier (gather_probe.SLICE_ROWS); 2 steps are fewer than its
+# step groups (4 on 132 SMs), 6,147 rows not a whole number of 4, and the
+# magnitudes sit near 2^100 and below 2^-100.
+GATHER_CASES = {"tool": (6144, 6), "one_row_table": (1, 3),
+                "rows_not_x4": (6147, 5), "fewer_steps_than_groups": (6147, 2),
+                "one_row_fetched": (6147, 4), "huge": (6147, 3),
+                "tiny": (6147, 3)}
+
+
+def gather_case(case, seed=0):
+    """(idx int32 (steps * 512,), tbl float32 (NN, 128)) of a
+    ``GATHER_CASES`` entry."""
+    NN, steps = GATHER_CASES[case]
+    rng = np.random.default_rng(seed)
+    tbl = rng.normal(size=(NN, 128)).astype(F32)
+    idx = rng.integers(0, NN, steps * 512).astype(np.int32)
+    if case == "one_row_fetched":
+        idx[:] = NN // 2
+    elif case == "huge":
+        tbl = (tbl * F32(2.0 ** 100)).astype(F32)
+    elif case == "tiny":
+        tbl = (tbl * F32(2.0 ** -110)).astype(F32)
+    return idx, tbl
