@@ -1,0 +1,7 @@
+"""host_syncs.query (syncs/query): the program's host syncs a query, the
+harness's end-of-call sync left out (``core/trace.py``)."""
+
+
+def read(run):
+    t = run.trace
+    return None if t is None else t.syncs / t.calls
