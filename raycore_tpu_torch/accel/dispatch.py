@@ -26,6 +26,7 @@ depend on the engine.
 """
 from __future__ import annotations
 
+from ..utils.config import span
 from . import traversal as _trav
 from .dense import DenseScene
 from .types import StaticTLAS
@@ -73,24 +74,27 @@ def scene_closest_hit(scene, rays, *, tile_size: int = 16384,
     options) raises ``TypeError`` on a ``DenseScene``, as in the JAX
     package. A ``StaticTLAS`` goes to the traversal and a
     ``DenseInstancedScene`` to the instanced engine (module docstring)."""
-    routed = _other_forms(scene, rays, tile_size, trav_kw, any_hit=False)
-    if routed is not None:
-        return (routed, None) if deferred else routed
-    big = _big_batch(scene, rays)
-    if trav_kw:
-        raise TypeError(f"dense-engine queries do not accept {trav_kw}")
-    if big and scene.sub_chunks == 1:
-        from ..ops.regroup import closest_hit_regrouped
-        res = closest_hit_regrouped(scene, rays, tile=2048,
-                                    passes=BIG_BATCH_PASSES, payload=payload)
-    elif big:
-        from ..ops.regroup import closest_hit_packed
-        res = closest_hit_packed(scene, rays, tile=2048)
-    else:
-        from ..ops.dense import closest_hit_dense_pallas_auto
-        res = closest_hit_dense_pallas_auto(scene, rays,
-                                            tile=_worklist_tile(tile_size))
-    return (res, None) if deferred else res
+    with span("raycore.closest_hit"):
+        routed = _other_forms(scene, rays, tile_size, trav_kw,
+                              any_hit=False)
+        if routed is not None:
+            return (routed, None) if deferred else routed
+        big = _big_batch(scene, rays)
+        if trav_kw:
+            raise TypeError(f"dense-engine queries do not accept {trav_kw}")
+        if big and scene.sub_chunks == 1:
+            from ..ops.regroup import closest_hit_regrouped
+            res = closest_hit_regrouped(scene, rays, tile=2048,
+                                        passes=BIG_BATCH_PASSES,
+                                        payload=payload)
+        elif big:
+            from ..ops.regroup import closest_hit_packed
+            res = closest_hit_packed(scene, rays, tile=2048)
+        else:
+            from ..ops.dense import closest_hit_dense_pallas_auto
+            res = closest_hit_dense_pallas_auto(
+                scene, rays, tile=_worklist_tile(tile_size))
+        return (res, None) if deferred else res
 
 
 def scene_any_hit(scene, rays, *, tile_size: int = 16384,
@@ -99,20 +103,21 @@ def scene_any_hit(scene, rays, *, tile_size: int = 16384,
     forced to 0, and only hit, prim_idx and instance_idx are
     contractual. ``tile_size``, ``deferred`` and ``trav_kw`` as in
     ``scene_closest_hit``."""
-    routed = _other_forms(scene, rays, tile_size, trav_kw, any_hit=True)
-    if routed is not None:
-        return (routed, None) if deferred else routed
-    big = _big_batch(scene, rays)
-    if trav_kw:
-        raise TypeError(f"dense-engine queries do not accept {trav_kw}")
-    if big and scene.sub_chunks == 1:
-        from ..ops.regroup import any_hit_regrouped
-        res = any_hit_regrouped(scene, rays, tile=2048)
-    else:
-        from ..ops.dense import any_hit_dense_pallas_auto
-        res = any_hit_dense_pallas_auto(scene, rays,
-                                        tile=_worklist_tile(tile_size))
-    return (res, None) if deferred else res
+    with span("raycore.any_hit"):
+        routed = _other_forms(scene, rays, tile_size, trav_kw, any_hit=True)
+        if routed is not None:
+            return (routed, None) if deferred else routed
+        big = _big_batch(scene, rays)
+        if trav_kw:
+            raise TypeError(f"dense-engine queries do not accept {trav_kw}")
+        if big and scene.sub_chunks == 1:
+            from ..ops.regroup import any_hit_regrouped
+            res = any_hit_regrouped(scene, rays, tile=2048)
+        else:
+            from ..ops.dense import any_hit_dense_pallas_auto
+            res = any_hit_dense_pallas_auto(
+                scene, rays, tile=_worklist_tile(tile_size))
+        return (res, None) if deferred else res
 
 
 def _other_forms(scene, rays, tile_size: int, trav_kw: dict, any_hit: bool):

@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.config import span
 from .device import as_f32, default_device
 
 
@@ -110,8 +111,10 @@ _EPS = 1e-5
 
 
 def safe_invdir(d):
-    """1/d with |d| clamped away from zero at 1e-5, preserving sign."""
-    eps = torch.tensor(_EPS, dtype=torch.float32, device=d.device)
+    """1/d with |d| clamped away from zero at 1e-5, preserving sign. The
+    clamp's upload is a host sync on the card (``raycore.wait.eps``)."""
+    with span("raycore.wait.eps"):
+        eps = torch.tensor(_EPS, dtype=torch.float32, device=d.device)
     clamped = torch.where(d.abs() > eps, d, torch.copysign(eps, d))
     return 1.0 / clamped
 

@@ -23,6 +23,11 @@ The drivers keep the JAX names, ``_pallas`` included: stripped,
 ``closest_hit_dense``. The worklist is exact, sized by ``nonzero``: there
 is no capacity bucket, no dummy tile and no chunk aliasing; each kernel
 walks a tile's blocks through ``tile_ranges``.
+
+Tracing (``utils/config.py:span``): the worklist queries run their stages
+in ``raycore.stage1``, ``raycore.sweep``, ``raycore.combine`` and
+``raycore.finalize`` spans, and each host sync in a
+``raycore.wait.<site>`` span.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from ..accel.dense import (EDGE_EPS, finalize_hits_exact, prim_only_hits,
                            ray_features)
 from ..core.triangle import INV_DIR_CLAMP, fma, safe_invdir
 from ..kernels import _build
+from ..utils.config import span
 
 FEAT = 16
 INT32_MAX = 0x7FFFFFFF
@@ -92,7 +98,8 @@ def interval_entry(st, bmin, bmax):
     shape = torch.broadcast_shapes(st.shape[:-1], bmin.shape[:-1])
     dev = st.device
     full = lambda v: torch.full(shape, v, dtype=torch.float32, device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
+    with span("raycore.wait.inf"):
+        inf = torch.tensor(float("inf"), device=dev)
     t_lo, t_hi = full(-float("inf")), full(float("inf"))
     CL = INV_DIR_CLAMP
     for a in range(3):
@@ -255,14 +262,16 @@ def build_worklist(entry):
     """(tids, cids) int32 of every finite-entry pair of the (n_tiles, K)
     entry matrix, row-major (tile-major) order."""
     K = entry.shape[1]
-    sel = compact_indices(torch.isfinite(entry).reshape(-1))
+    with span("raycore.wait.worklist"):
+        sel = compact_indices(torch.isfinite(entry).reshape(-1))
     return (sel // K).to(torch.int32), (sel % K).to(torch.int32)
 
 
 def tile_ranges(tids, n_tiles: int):
     """(n_tiles + 1,) int32 offsets of each tile's blocks in a worklist
     sorted by tile: tile t owns blocks [start[t], start[t + 1])."""
-    counts = torch.bincount(tids.long(), minlength=n_tiles)
+    with span("raycore.wait.ranges"):
+        counts = torch.bincount(tids.long(), minlength=n_tiles)
     start = torch.zeros(n_tiles + 1, dtype=torch.int32, device=tids.device)
     start[1:] = torch.cumsum(counts, 0)
     return start
@@ -702,19 +711,23 @@ def _phase_a_and_worklist(scene, o, d, t_min, t_max, *, TILE: int):
     """First half of the auto-sized query: pad, phase A, the exact
     worklist. Returns (tids, cids, phi, tmin, key0, entry, o, d) over the
     padded rows."""
-    entry, phi, tmin, key0, o, d = _worklist_inputs(scene, o, d, t_min,
-                                                    t_max, TILE)
-    tids, cids = build_worklist(entry)
-    return tids, cids, phi, tmin, key0, entry, o, d
+    with span("raycore.stage1"):
+        entry, phi, tmin, key0, o, d = _worklist_inputs(scene, o, d, t_min,
+                                                        t_max, TILE)
+        tids, cids = build_worklist(entry)
+        return tids, cids, phi, tmin, key0, entry, o, d
 
 
 def _sweep_and_finalize(scene, tids, cids, phi, tmin, key0, entry, o, d, *,
                         TILE: int) -> HitResult:
     """Second half: K3 over the whole worklist, then the exact finalize."""
     bits = _idx_bits(scene.cluster_size // scene.sub_chunks)
-    key, pair = _sweep(scene, tids, cids, phi, tmin, key0, TILE)
-    t, pair = _untouched_to_miss(entry, key, pair, TILE, bits)
-    return finalize_hits_exact(scene, pair, t, o, d)
+    with span("raycore.sweep"):
+        key, pair = _sweep(scene, tids, cids, phi, tmin, key0, TILE)
+    with span("raycore.combine"):
+        t, pair = _untouched_to_miss(entry, key, pair, TILE, bits)
+    with span("raycore.finalize"):
+        return finalize_hits_exact(scene, pair, t, o, d)
 
 
 def closest_hit_dense_pallas_auto(scene, rays, *, tile: int = 512):
@@ -858,20 +871,23 @@ def closest_hit_dense_pallas_topk(scene, rays, *, tile: int = 512,
 def _occl_phase_a(scene, o, d, t_min, t_max, *, TILE: int):
     """Pad, phase A and the worklist of the occlusion query. Returns
     (tids, cids, phi, tmin, tmax) over the padded rows."""
-    o, d, t_min, t_max = pad_rays(o, d, t_min, t_max, TILE)
-    entry = phase_a_entry(scene, o, d, t_min, t_max, o.shape[0] // TILE,
-                          TILE)
-    tids, cids = build_worklist(entry)
-    return tids, cids, ray_features(o, d), t_min, t_max
+    with span("raycore.stage1"):
+        o, d, t_min, t_max = pad_rays(o, d, t_min, t_max, TILE)
+        entry = phase_a_entry(scene, o, d, t_min, t_max, o.shape[0] // TILE,
+                              TILE)
+        tids, cids = build_worklist(entry)
+        return tids, cids, ray_features(o, d), t_min, t_max
 
 
 def _occl_finalize(scene, tids, cids, phi, tmin, tmax, *, TILE: int,
                    R0: int) -> HitResult:
     """K4, then the payload-free result of the first R0 rows."""
-    pair = run_occlusion(tids, cids, phi, scene.tri_feats, tmin, tmax,
-                         TILE=TILE, C=scene.cluster_size,
-                         SUB=scene.sub_chunks)
-    return prim_only_hits(scene, pair[:R0])
+    with span("raycore.sweep"):
+        pair = run_occlusion(tids, cids, phi, scene.tri_feats, tmin, tmax,
+                             TILE=TILE, C=scene.cluster_size,
+                             SUB=scene.sub_chunks)
+    with span("raycore.finalize"):
+        return prim_only_hits(scene, pair[:R0])
 
 
 def any_hit_dense_pallas_auto(scene, rays, *, tile: int = 512):

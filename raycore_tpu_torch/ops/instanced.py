@@ -23,6 +23,12 @@ JAX package's predict-then-validate capacities (``_CAP_CACHE``,
 ``P_cap``/``Q_cap`` doubling with ``pairs_per_tile``, the fused warm
 path) are not ported (ROADMAP.md, "What is not ported").
 
+Tracing (``utils/config.py:span``): stage 1 runs in a ``raycore.stage1``
+span, K2 in ``raycore.sweep``, the combine and the decode in
+``raycore.combine``, the local finalize in ``raycore.finalize``, and each
+host sync (the compactions, the block count, the small uploads) in a
+``raycore.wait.<site>`` span.
+
 The local rays' dots are fused multiply-add chains, as the JAX package's
 compiled stage 1 computes them, so the candidates equal its candidates;
 the ray features (``o_l x d_l``) and the finalize run in plain float32, as
@@ -38,6 +44,7 @@ from ..accel.brute import HitResult
 from ..accel.dense import FEAT, gather_hit_payload, ray_features
 from ..core.transforms import _apply_mat3_fused
 from ..core.triangle import safe_invdir
+from ..utils.config import span
 from .dense import (_t_from_keys, build_worklist, compact_indices,
                     interval_entry, phase_a_entry_bounds)
 from .regroup import (COL_TMAX, COL_TMIN, _padded_batch, combine_rows_grouped,
@@ -90,65 +97,67 @@ class InstancedStage1:
 def _stage1_inst_core(scene, o, d, t_min, t_max, TILE: int, G: int,
                       SPB: int) -> InstancedStage1:
     """Stage 1 on padded rays (a whole number of TILE-ray tiles)."""
-    S = scene.max_clusters_per_blas
-    SPT = TILE // G
-    dev = o.device
-    n_tiles = o.shape[0] // TILE
-    n_sub = o.shape[0] // G
+    with span("raycore.stage1"):
+        S = scene.max_clusters_per_blas
+        SPT = TILE // G
+        dev = o.device
+        n_tiles = o.shape[0] // TILE
+        n_sub = o.shape[0] // G
 
-    # 1) (tile, instance) culling: kernel K1 on the instance AABBs.
-    entry = phase_a_entry_bounds(scene.inst_aabb_min, scene.inst_aabb_max,
-                                 o, d, t_min, t_max, n_tiles, TILE)
-    tids, iids = build_worklist(entry)
-    P = tids.shape[0]
+        # 1) (tile, instance) culling: kernel K1 on the instance AABBs.
+        entry = phase_a_entry_bounds(scene.inst_aabb_min, scene.inst_aabb_max,
+                                     o, d, t_min, t_max, n_tiles, TILE)
+        tids, iids = build_worklist(entry)
+        P = tids.shape[0]
 
-    # 2) Subgroup refinement in world space.
-    stats = subgroup_stats(o, d, t_min, t_max, G)
-    fine = refine_pairs(stats, tids, iids, scene.inst_aabb_min,
-                        scene.inst_aabb_max, SPT, n_tiles)     # (P, SPT)
-    spt = torch.arange(SPT, dtype=torch.int32, device=dev)
-    sel = compact_indices(torch.isfinite(fine).reshape(-1))
-    qsub = (tids[:, None] * SPT + spt).reshape(-1)[sel]
-    qinst = iids[:, None].expand(P, SPT).reshape(-1)[sel]
-    Q = qsub.shape[0]
+        # 2) Subgroup refinement in world space.
+        stats = subgroup_stats(o, d, t_min, t_max, G)
+        fine = refine_pairs(stats, tids, iids, scene.inst_aabb_min,
+                            scene.inst_aabb_max, SPT, n_tiles)     # (P, SPT)
+        spt = torch.arange(SPT, dtype=torch.int32, device=dev)
+        with span("raycore.wait.refine"):
+            sel = compact_indices(torch.isfinite(fine).reshape(-1))
+        qsub = (tids[:, None] * SPT + spt).reshape(-1)[sel]
+        qinst = iids[:, None].expand(P, SPT).reshape(-1)[sel]
+        Q = qsub.shape[0]
 
-    # 3) Local-space rays and their feature table, one row of G a pair.
-    qs, qi = qsub.long(), qinst.long()
-    inv = scene.inst_inv[qi][:, None]                        # (Q, 1, 3, 4)
-    o_l, d_l = _local_rays(inv, o.reshape(n_sub, G, 3)[qs],
-                           d.reshape(n_sub, G, 3)[qs])
-    d_l = torch.where(d_l == 0.0, 0.0, d_l)                 # -0 -> +0
-    tmin_g = t_min.reshape(n_sub, G)[qs]
-    tmax_g = t_max.reshape(n_sub, G)[qs]
-    phi = ray_features(o_l.reshape(-1, 3), d_l.reshape(-1, 3)) \
-        .reshape(Q, G, FEAT)
-    phi[:, :, COL_TMIN] = tmin_g
-    phi[:, :, COL_TMAX] = tmax_g
-    dummy = torch.zeros((1, G, FEAT), dtype=torch.float32, device=dev)
-    dummy[:, :, COL_TMAX] = -float("inf")
-    tbl = torch.cat([phi, dummy])
+        # 3) Local-space rays and their feature table, one row of G a pair.
+        qs, qi = qsub.long(), qinst.long()
+        inv = scene.inst_inv[qi][:, None]                        # (Q, 1, 3, 4)
+        o_l, d_l = _local_rays(inv, o.reshape(n_sub, G, 3)[qs],
+                               d.reshape(n_sub, G, 3)[qs])
+        d_l = torch.where(d_l == 0.0, 0.0, d_l)                 # -0 -> +0
+        tmin_g = t_min.reshape(n_sub, G)[qs]
+        tmax_g = t_max.reshape(n_sub, G)[qs]
+        phi = ray_features(o_l.reshape(-1, 3), d_l.reshape(-1, 3)) \
+            .reshape(Q, G, FEAT)
+        phi[:, :, COL_TMIN] = tmin_g
+        phi[:, :, COL_TMAX] = tmax_g
+        dummy = torch.zeros((1, G, FEAT), dtype=torch.float32, device=dev)
+        dummy[:, :, COL_TMAX] = -float("inf")
+        tbl = torch.cat([phi, dummy])
 
-    # 4) Cluster expansion in local space: S slots a pair, one per
-    # cluster of its BLAS.
-    ncl = scene.inst_ncl[qi]
-    slots = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
-    crow = scene.inst_cbase[qi][:, None] \
-        + torch.minimum(slots, ncl[:, None] - 1)
-    cvalid = slots < ncl[:, None]                             # (Q, S)
-    invd_l = safe_invdir(d_l)
-    cr = crow.long()
-    e2 = _bundle_entry_vs_bounds(
-        o_l.amin(1)[:, None], o_l.amax(1)[:, None],
-        invd_l.amin(1)[:, None], invd_l.amax(1)[:, None],
-        tmin_g.amin(1)[:, None], tmax_g.amax(1)[:, None],
-        scene.cluster_min[cr], scene.cluster_max[cr])        # (Q, S)
-    tvalid = (cvalid & torch.isfinite(e2)).reshape(-1)
-    pair_ids = torch.arange(Q, dtype=torch.int32, device=dev)[:, None] \
-        .expand(Q, S).reshape(-1)
-    block_cid, block_subs = group_flat_cluster_major(
-        pair_ids, crow.reshape(-1), tvalid, SPB=SPB, n_sub=Q)
-    return InstancedStage1(block_cid, block_subs, tbl, qsub, qinst, P,
-                           tvalid.sum())
+        # 4) Cluster expansion in local space: S slots a pair, one per
+        # cluster of its BLAS.
+        ncl = scene.inst_ncl[qi]
+        slots = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        crow = scene.inst_cbase[qi][:, None] \
+            + torch.minimum(slots, ncl[:, None] - 1)
+        cvalid = slots < ncl[:, None]                             # (Q, S)
+        invd_l = safe_invdir(d_l)
+        cr = crow.long()
+        e2 = _bundle_entry_vs_bounds(
+            o_l.amin(1)[:, None], o_l.amax(1)[:, None],
+            invd_l.amin(1)[:, None], invd_l.amax(1)[:, None],
+            tmin_g.amin(1)[:, None], tmax_g.amax(1)[:, None],
+            scene.cluster_min[cr], scene.cluster_max[cr])        # (Q, S)
+        tvalid = (cvalid & torch.isfinite(e2)).reshape(-1)
+        pair_ids = torch.arange(Q, dtype=torch.int32, device=dev)[:, None] \
+            .expand(Q, S).reshape(-1)
+        block_cid, block_subs = group_flat_cluster_major(
+            pair_ids, crow.reshape(-1), tvalid, SPB=SPB, n_sub=Q)
+        return InstancedStage1(block_cid, block_subs, tbl, qsub, qinst, P,
+                               tvalid.sum())
 
 
 def decode_pairrow(pair, block_cid, block_subs, qinst, C: int, SPB: int):
@@ -159,9 +168,13 @@ def decode_pairrow(pair, block_cid, block_subs, qinst, C: int, SPB: int):
     hit = pair >= 0
     safe = pair.clamp_min(0).long()
     pair_row = safe // C
-    ext = lambda a, v: torch.cat([a.reshape(-1).long(), torch.tensor(
-        [v], dtype=torch.int64, device=a.device)])
+
     # A trailing sentinel keeps the lookups in range on an empty grid.
+    def ext(a, v):
+        with span("raycore.wait.sentinel"):
+            tail = torch.tensor([v], dtype=torch.int64, device=a.device)
+        return torch.cat([a.reshape(-1).long(), tail])
+
     cid = ext(block_cid, 0)[(pair_row // SPB).clamp(max=block_cid.numel())]
     row_pair = ext(block_subs, 0)[pair_row.clamp(max=block_subs.numel())]
     inst = ext(qinst, 0)[row_pair.clamp(0, qinst.numel())]
@@ -176,22 +189,25 @@ def _stage2_inst_core(scene, s1: InstancedStage1, o, d, G: int, SPB: int,
     C = scene.cluster_size
     n_sub = R_pad // G
     R = o.shape[0]
-    key, pair = run_regrouped(s1.block_subs, s1.block_cid, s1.tbl,
-                              scene.tri_feats, G=G, SPB=SPB, C=C,
-                              payload="pairrow")
-    # The combine groups rows by ray subgroup: each block row's pair maps
-    # to its subgroup, the dummy pair to the dummy subgroup n_sub.
-    qsub_ext = torch.cat([s1.qsub, torch.tensor(
-        [n_sub], dtype=torch.int32, device=o.device)])
-    subs_m = qsub_ext[s1.block_subs.long()]
-    out_key, out_pair = combine_rows_grouped(key, pair, subs_m, G, SPB,
-                                             n_sub)
-    prim, inst = decode_pairrow(out_pair[:R], s1.block_cid, s1.block_subs,
-                                s1.qinst, C, SPB)
-    inv = scene.inst_inv[inst.clamp_min(0)]
-    o_l, d_l = _local_rays(inv, o, d)
-    return _finalize_local(scene, prim, inst, _t_from_keys(out_key[:R], 0),
-                           o_l, d_l)
+    with span("raycore.sweep"):
+        key, pair = run_regrouped(s1.block_subs, s1.block_cid, s1.tbl,
+                                  scene.tri_feats, G=G, SPB=SPB, C=C,
+                                  payload="pairrow")
+    with span("raycore.combine"):
+        # The combine groups rows by ray subgroup: each block row's pair
+        # maps to its subgroup, the dummy pair to the dummy subgroup n_sub.
+        with span("raycore.wait.dummy"):
+            dummy = torch.tensor([n_sub], dtype=torch.int32, device=o.device)
+        subs_m = torch.cat([s1.qsub, dummy])[s1.block_subs.long()]
+        out_key, out_pair = combine_rows_grouped(key, pair, subs_m, G, SPB,
+                                                 n_sub)
+        prim, inst = decode_pairrow(out_pair[:R], s1.block_cid,
+                                    s1.block_subs, s1.qinst, C, SPB)
+    with span("raycore.finalize"):
+        inv = scene.inst_inv[inst.clamp_min(0)]
+        o_l, d_l = _local_rays(inv, o, d)
+        return _finalize_local(scene, prim, inst,
+                               _t_from_keys(out_key[:R], 0), o_l, d_l)
 
 
 def _finalize_local(scene, prim, inst, t_approx, o_l, d_l) -> HitResult:

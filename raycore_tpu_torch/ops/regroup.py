@@ -30,6 +30,13 @@ The block grids are sized exactly from the data (a host sync on each
 compaction and one ``.item()`` on each block count); nothing is sized by
 a capacity guess. Only the compact stage 1 is ported; every payload
 ("full", "slim" and any_hit's "occlusion") takes it, at any ``passes``.
+
+Tracing: each stage runs in a profiler span (``utils/config.py:span``),
+``raycore.stage1``, ``raycore.sweep`` (nested in stage 1 for the
+multiwave's wave grid), ``raycore.combine`` and ``raycore.finalize``, and
+each host sync in a ``raycore.wait.<site>`` span;
+``pack_presorted_cluster_major`` counts the grid's subgroup slots and the
+filled ones (``slots``, ``filled``).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from ..accel.dense import (FEAT, depth_layers, finalize_hits_exact,
                            prim_only_hits, ray_features)
 from ..core.triangle import safe_invdir
 from ..kernels import _build
+from ..utils.config import span
 from .dense import (EDGE_EPS, INT32_MAX, PLAIN_CHUNK_ELEMS, _featurized_hits,
                     _t_from_keys, build_worklist, compact_indices, flat_rays,
                     interval_entry, kernel_order_hits, pad_rays,
@@ -97,7 +105,9 @@ def pack_presorted_cluster_major(cid_s, sub_s, *, SPB: int, n_sub: int):
     """Pack a cluster-contiguous (cid, sub) list into blocks of SPB
     subgroups by rank arithmetic, no sort: equal cids must be adjacent.
     Returns (block_cid (B,), block_subs (B, SPB)) int32; slots past a
-    cluster's last subgroup point at the dummy subgroup ``n_sub``."""
+    cluster's last subgroup point at the dummy subgroup ``n_sub``. Adds
+    B*SPB to the counter ``slots`` and N to ``filled``: their ratio is the
+    share of the sweep's rows that hold a pair."""
     N = sub_s.shape[0]
     dev = sub_s.device
     i = torch.arange(N, dtype=torch.int64, device=dev)
@@ -108,13 +118,20 @@ def pack_presorted_cluster_major(cid_s, sub_s, *, SPB: int, n_sub: int):
     rank = i - first
     slot = rank % SPB
     block_id = torch.cumsum((slot == 0).to(torch.int64), 0) - 1
-    total = int(block_id[-1].item()) + 1 if N else 0   # the block count
+    with span("raycore.wait.blocks"):
+        total = int(block_id[-1].item()) + 1 if N else 0   # the block count
+    pack_presorted_cluster_major.slots += total * SPB
+    pack_presorted_cluster_major.filled += N
     block_cid = torch.empty(total, dtype=torch.int32, device=dev)
     block_cid[block_id] = cid_s.to(torch.int32)   # one value per block
     block_subs = torch.full((total, SPB), n_sub, dtype=torch.int32,
                             device=dev)
     block_subs[block_id, slot] = sub_s.to(torch.int32)
     return block_cid, block_subs
+
+
+pack_presorted_cluster_major.slots = 0
+pack_presorted_cluster_major.filled = 0
 
 
 def group_flat_cluster_major(sub, cid, valid, *, SPB: int, n_sub: int):
@@ -132,7 +149,8 @@ def group_flat_cluster_major(sub, cid, valid, *, SPB: int, n_sub: int):
     order changes nothing. In the pairrow payload it decides which of two
     exactly tied (instance, prim) winners has the smaller pair id, and so
     which the grouped combine keeps."""
-    keep = compact_indices(valid)
+    with span("raycore.wait.candidates"):
+        keep = compact_indices(valid)
     cid_v, sub_v = cid[keep], sub[keep]
     order = torch.sort(cid_v, stable=True).indices
     return pack_presorted_cluster_major(cid_v[order], sub_v[order], SPB=SPB,
@@ -400,7 +418,8 @@ def subgroup_pairs(scene, o, d, t_min, t_max, TILE, G):
     sub = (tile_ids[:, None] * SPT + spt[None, :]).reshape(-1)
     cid = cluster_ids[:, None].expand(P, SPT).reshape(-1)
     fine = fine.reshape(-1)
-    sel = compact_indices(torch.isfinite(fine))
+    with span("raycore.wait.refine"):
+        sel = compact_indices(torch.isfinite(fine))
     return P, sub[sel], cid[sel], fine[sel], stats
 
 
@@ -460,41 +479,47 @@ def _stage1_cm_core(scene, o, d, t_min, t_max, TILE, G, SPB, waves=0):
     then: the remainder grid, counts (coarse pairs, subgroup pairs,
     remainder pairs, remainder blocks, wave pairs, wave blocks) and
     ``wave`` a ``WaveSweep``."""
-    n_sub = o.shape[0] // G
-    P, sub, cid, entry, _ = subgroup_pairs(scene, o, d, t_min, t_max, TILE,
-                                           G)
-    tbl = ray_table(o, d, t_min, t_max, G)
-    if waves == 0:
+    with span("raycore.stage1"):
+        n_sub = o.shape[0] // G
+        P, sub, cid, entry, _ = subgroup_pairs(scene, o, d, t_min, t_max,
+                                               TILE, G)
+        tbl = ray_table(o, d, t_min, t_max, G)
+        if waves == 0:
+            block_cid, block_subs = pack_presorted_cluster_major(
+                cid, sub, SPB=SPB, n_sub=n_sub)
+            return block_cid, block_subs, tbl, (P, sub.shape[0],
+                                                block_cid.shape[0])
+        K = scene.n_clusters
+        chosen, entry_w = wave_select(entry, sub, cid, waves, n_sub, K)
+        # The wave grid: the chosen pairs, made cluster-contiguous by a
+        # stable sort. The order of blocks changes no result: K2 computes
+        # each row alone and the combine is a min.
+        flat = chosen.reshape(-1)
+        with span("raycore.wait.wave"):
+            pick = compact_indices(flat < K)
+        order = torch.sort(flat[pick], stable=True).indices
+        wsub = (pick // waves).to(torch.int32)[order]
+        bc1, bs1 = pack_presorted_cluster_major(flat[pick][order], wsub,
+                                                SPB=SPB, n_sub=n_sub)
+        with span("raycore.sweep"):
+            k1r, p1r = run_regrouped(bs1, bc1, tbl, scene.tri_feats, G=G,
+                                     SPB=SPB, C=scene.cluster_size)
+        k1, p1 = combine_rows_grouped(k1r, p1r, bs1, G, SPB, n_sub)
+        t1 = torch.where(k1 == INT32_MAX, float("inf"),
+                         _t_from_keys(k1, 0))
+        ub = t1.reshape(n_sub, G).amax(dim=1)
+        # The chosen pairs carry +inf; the finite test keeps them out of
+        # the remainder where ub is +inf too (ROADMAP Q7).
+        with span("raycore.wait.prune"):
+            keep = compact_indices(torch.isfinite(entry_w)
+                                   & (entry_w <= ub[sub.long()]))
         block_cid, block_subs = pack_presorted_cluster_major(
-            cid, sub, SPB=SPB, n_sub=n_sub)
-        return block_cid, block_subs, tbl, (P, sub.shape[0],
-                                            block_cid.shape[0])
-    K = scene.n_clusters
-    chosen, entry_w = wave_select(entry, sub, cid, waves, n_sub, K)
-    # The wave grid: the chosen pairs, made cluster-contiguous by a stable
-    # sort. The order of blocks changes no result: K2 computes each row
-    # alone and the combine is a min.
-    flat = chosen.reshape(-1)
-    pick = compact_indices(flat < K)
-    order = torch.sort(flat[pick], stable=True).indices
-    wsub = (pick // waves).to(torch.int32)[order]
-    bc1, bs1 = pack_presorted_cluster_major(flat[pick][order], wsub, SPB=SPB,
-                                            n_sub=n_sub)
-    k1r, p1r = run_regrouped(bs1, bc1, tbl, scene.tri_feats, G=G, SPB=SPB,
-                             C=scene.cluster_size)
-    k1, p1 = combine_rows_grouped(k1r, p1r, bs1, G, SPB, n_sub)
-    t1 = torch.where(k1 == INT32_MAX, float("inf"), _t_from_keys(k1, 0))
-    ub = t1.reshape(n_sub, G).amax(dim=1)
-    # The chosen pairs carry +inf; the finite test keeps them out of the
-    # remainder where ub is +inf too (ROADMAP Q7).
-    keep = compact_indices(torch.isfinite(entry_w)
-                           & (entry_w <= ub[sub.long()]))
-    block_cid, block_subs = pack_presorted_cluster_major(
-        cid[keep], sub[keep], SPB=SPB, n_sub=n_sub)
-    counts = (P, sub.shape[0], keep.shape[0], block_cid.shape[0],
-              pick.shape[0], bc1.shape[0])
-    return block_cid, block_subs, tbl, counts, WaveSweep(
-        k1=k1, p1=p1, block_cid=bc1, block_subs=bs1, chosen=chosen, ub=ub)
+            cid[keep], sub[keep], SPB=SPB, n_sub=n_sub)
+        counts = (P, sub.shape[0], keep.shape[0], block_cid.shape[0],
+                  pick.shape[0], bc1.shape[0])
+        return block_cid, block_subs, tbl, counts, WaveSweep(
+            k1=k1, p1=p1, block_cid=bc1, block_subs=bs1, chosen=chosen,
+            ub=ub)
 
 
 def merge_pass1(key, pair, k1, p1):
@@ -514,22 +539,31 @@ def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
     rays; ``R_pad`` is the padded ray count."""
     R = o.shape[0]
     n_sub = R_pad // G
-    key, pair = run_regrouped(block_subs, block_cid, tbl, scene.tri_feats,
-                              G=G, SPB=SPB, C=scene.cluster_size)
-    out_key, out_pair = combine_rows_grouped(key, pair, block_subs, G, SPB,
-                                             n_sub)
-    if wave is not None:
-        out_key, out_pair = merge_pass1(out_key, out_pair, wave.k1, wave.p1)
+    with span("raycore.sweep"):
+        key, pair = run_regrouped(block_subs, block_cid, tbl,
+                                  scene.tri_feats, G=G, SPB=SPB,
+                                  C=scene.cluster_size)
+    with span("raycore.combine"):
+        out_key, out_pair = combine_rows_grouped(key, pair, block_subs, G,
+                                                 SPB, n_sub)
+        if wave is not None:
+            out_key, out_pair = merge_pass1(out_key, out_pair, wave.k1,
+                                            wave.p1)
+    with span("raycore.finalize"):
+        return _finalize(scene, out_key[:R], out_pair[:R], o, d, payload)
+
+
+def _finalize(scene, key, pair, o, d, payload: str):
+    """The result of each ray's winning (key, pair) in ``payload``."""
     if payload == "slim":
         # Exact hit, t (the full-precision winning key), prim, instance and
         # metadata; zero triangle and barycentric.
-        return prim_only_hits(scene, out_pair[:R],
-                              t=_t_from_keys(out_key[:R], 0), metadata=True)
+        return prim_only_hits(scene, pair, t=_t_from_keys(key, 0),
+                              metadata=True)
     if payload == "occlusion":
         # any_hit's contract: hit, occluder prim and instance only.
-        return prim_only_hits(scene, out_pair[:R])
-    t = _t_from_keys(out_key[:R], 0)
-    return finalize_hits_exact(scene, out_pair[:R], t, o, d)
+        return prim_only_hits(scene, pair)
+    return finalize_hits_exact(scene, pair, _t_from_keys(key, 0), o, d)
 
 
 def _padded_batch(rays, tile: int, subgroup: int):
@@ -643,28 +677,31 @@ def _stage1_packed_core(scene, o, d, t_min, t_max, TILE, G, SPB_sub):
     blocks of SPB_sub subgroups. Returns (block_cid, block_subs, tbl,
     counts) with block_cid the sub-cluster id and counts (coarse pairs,
     subgroup pairs, sub-cluster pairs, blocks)."""
-    SUBC = scene.sub_chunks
-    n_sub = o.shape[0] // G
-    dev = o.device
-    P, qsub, qcid, _, stats = subgroup_pairs(scene, o, d, t_min, t_max,
-                                             TILE, G)             # (Q,)
-    Q = qsub.shape[0]
+    with span("raycore.stage1"):
+        SUBC = scene.sub_chunks
+        n_sub = o.shape[0] // G
+        dev = o.device
+        P, qsub, qcid, _, stats = subgroup_pairs(
+            scene, o, d, t_min, t_max, TILE, G)                   # (Q,)
+        Q = qsub.shape[0]
 
-    sbmin, sbmax = subchunk_bounds(scene)
-    crow = (qcid[:, None] * SUBC
-            + torch.arange(SUBC, dtype=torch.int32, device=dev)[None, :])
-    cr = crow.long()
-    e2 = interval_entry(stats[qsub.long()][:, None, :], sbmin[cr],
-                        sbmax[cr])                             # (Q, SUBC)
-    keep = compact_indices(torch.isfinite(e2).reshape(-1))
-    q = crow.reshape(-1)[keep]
-    s = qsub[:, None].expand(Q, SUBC).reshape(-1)[keep]
-    order = torch.sort(q, stable=True).indices
-    block_cid, block_subs = pack_presorted_cluster_major(
-        q[order], s[order], SPB=SPB_sub, n_sub=n_sub)
-    tbl = ray_table(o, d, t_min, t_max, G)
-    counts = (P, Q, keep.shape[0], block_cid.shape[0])
-    return block_cid, block_subs, tbl, counts
+        sbmin, sbmax = subchunk_bounds(scene)
+        crow = (qcid[:, None] * SUBC
+                + torch.arange(SUBC, dtype=torch.int32,
+                               device=dev)[None, :])
+        cr = crow.long()
+        e2 = interval_entry(stats[qsub.long()][:, None, :], sbmin[cr],
+                            sbmax[cr])                         # (Q, SUBC)
+        with span("raycore.wait.subchunks"):
+            keep = compact_indices(torch.isfinite(e2).reshape(-1))
+        q = crow.reshape(-1)[keep]
+        s = qsub[:, None].expand(Q, SUBC).reshape(-1)[keep]
+        order = torch.sort(q, stable=True).indices
+        block_cid, block_subs = pack_presorted_cluster_major(
+            q[order], s[order], SPB=SPB_sub, n_sub=n_sub)
+        tbl = ray_table(o, d, t_min, t_max, G)
+        counts = (P, Q, keep.shape[0], block_cid.shape[0])
+        return block_cid, block_subs, tbl, counts
 
 
 def _stage2_packed_core(scene, block_cid, block_subs, tbl, o, d, G,
@@ -672,15 +709,19 @@ def _stage2_packed_core(scene, block_cid, block_subs, tbl, o, d, G,
     """K5, the grouped combine and the exact finalize. ``o``/``d`` are
     the unpadded rays."""
     R = o.shape[0]
-    key, pair = run_packed(block_subs, block_cid, tbl, scene.tri_feats, G=G,
-                           SPB_sub=SPB_sub, PACKS=PACKS,
-                           C_eff=scene.cluster_size // scene.sub_chunks,
-                           SUBC=scene.sub_chunks)
-    out_key, out_pair = combine_rows_grouped(key, pair, block_subs, G,
-                                             SPB_sub, tbl.shape[0] - 1)
-    # The keys are full t bits, not the worklist's truncated keys.
-    t = _t_from_keys(out_key[:R], 0)
-    return finalize_hits_exact(scene, out_pair[:R], t, o, d)
+    with span("raycore.sweep"):
+        key, pair = run_packed(block_subs, block_cid, tbl, scene.tri_feats,
+                               G=G, SPB_sub=SPB_sub, PACKS=PACKS,
+                               C_eff=scene.cluster_size
+                               // scene.sub_chunks,
+                               SUBC=scene.sub_chunks)
+    with span("raycore.combine"):
+        out_key, out_pair = combine_rows_grouped(key, pair, block_subs, G,
+                                                 SPB_sub, tbl.shape[0] - 1)
+    with span("raycore.finalize"):
+        # The keys are full t bits, not the worklist's truncated keys.
+        t = _t_from_keys(out_key[:R], 0)
+        return finalize_hits_exact(scene, out_pair[:R], t, o, d)
 
 
 def closest_hit_packed(scene, rays, *, tile: int = 2048, subgroup: int = 32,

@@ -20,6 +20,7 @@ from ..accel.dense import build_dense
 from ..accel.tlas_build import transformed_aabbs
 from ..core.transforms import mat3x4_inverse
 from ..core.triangle import Triangle
+from ..utils.config import span
 
 _PRIM_FIELDS = ("vertices", "normals", "tangents", "uv", "metadata")
 
@@ -138,18 +139,23 @@ def refresh_instances(scene: DenseInstancedScene,
     package's compiled refresh) and world AABBs only; geometry tables and
     shapes stay. The instance set must be the one baked: a changed count,
     or a delete and push that changes which BLAS an instance slot
-    references, raises ValueError (re-bake with ``bake_instanced``)."""
-    _, transforms, blas_idx = _gather_instance_arrays(mgr)
-    if transforms.shape[0] != scene.n_instances:
-        raise ValueError("instance set changed; re-bake with bake_instanced")
-    if not np.array_equal(blas_idx, scene.inst_blas_host):
-        raise ValueError(
-            "instance->BLAS assignment changed since bake_instanced "
-            "(delete+push cycle?); re-bake with bake_instanced")
-    tf = torch.as_tensor(transforms, device=scene.inst_inv.device)
-    wmin, wmax = transformed_aabbs(tf, scene.inst_local_min,
-                                   scene.inst_local_max)
-    return dataclasses.replace(
-        scene, inst_inv=mat3x4_inverse(tf, fused=True), inst_aabb_min=wmin,
-        inst_aabb_max=wmax, root_aabb=torch.stack([wmin.amin(0),
-                                                   wmax.amax(0)]))
+    references, raises ValueError (re-bake with ``bake_instanced``). Runs
+    in a ``raycore.refresh`` span, the upload of the transforms (a host
+    sync) in ``raycore.wait.transforms`` (``utils/config.py:span``)."""
+    with span("raycore.refresh"):
+        _, transforms, blas_idx = _gather_instance_arrays(mgr)
+        if transforms.shape[0] != scene.n_instances:
+            raise ValueError(
+                "instance set changed; re-bake with bake_instanced")
+        if not np.array_equal(blas_idx, scene.inst_blas_host):
+            raise ValueError(
+                "instance->BLAS assignment changed since bake_instanced "
+                "(delete+push cycle?); re-bake with bake_instanced")
+        with span("raycore.wait.transforms"):
+            tf = torch.as_tensor(transforms, device=scene.inst_inv.device)
+        wmin, wmax = transformed_aabbs(tf, scene.inst_local_min,
+                                       scene.inst_local_max)
+        return dataclasses.replace(
+            scene, inst_inv=mat3x4_inverse(tf, fused=True),
+            inst_aabb_min=wmin, inst_aabb_max=wmax,
+            root_aabb=torch.stack([wmin.amin(0), wmax.amax(0)]))

@@ -1,15 +1,12 @@
 """Flags and lightweight observability (counterpart of
 ``raycore_tpu/utils/config.py``): env-driven debug switches checked with
-``real_assert``, a min-of-N wall-time registry, and a ``torch.profiler``
-trace scope.
+``real_assert``, the program's profiler spans (``span``), and a
+``torch.profiler`` trace scope.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from dataclasses import dataclass, field
-from typing import Dict, List
 
 import torch
 
@@ -30,33 +27,28 @@ def real_assert(cond, msg: str = ""):
         raise AssertionError(msg or "real_assert failed")
 
 
-@dataclass
-class Timings:
-    """min-of-N wall timing registry."""
-    records: Dict[str, List[float]] = field(default_factory=dict)
+# What ``span`` returns while no profiler records: one shared context
+# that does nothing.
+_NO_SPAN = contextlib.nullcontext()
 
-    @contextlib.contextmanager
-    def time(self, name: str, block=None):
-        """Time the body; with ``block`` (a tensor on the card) the time
-        includes the card finishing its queued work."""
-        t0 = time.perf_counter()
-        yield
-        if isinstance(block, torch.Tensor) and block.is_cuda:
-            torch.cuda.synchronize(block.device)
-        self.records.setdefault(name, []).append(time.perf_counter() - t0)
 
-    def best(self, name: str) -> float:
-        return min(self.records[name])
-
-    def summary(self) -> Dict[str, float]:
-        return {k: min(v) for k, v in self.records.items()}
+def span(name: str):
+    """A profiler span named ``name`` (``torch.profiler.record_function``)
+    while a ``torch.profiler`` records on this thread, else a shared
+    context that does nothing. The spans are the profiler's host events,
+    on the clock of its device events; off, a span costs one check of the
+    profiler's state."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """A ``torch.profiler`` trace of the body (the card's kernels too when
     there is one), written to ``log_dir/trace.json`` (Chrome trace
-    format)."""
+    format). It holds the program's ``span`` ranges (``raycore.*``: each
+    query, its stages and its host waits) beside the operations."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

@@ -1,0 +1,200 @@
+"""The program's profiler spans and grid counters on the CPU
+(``raycore_tpu_torch/utils/config.py:span``): with no profiler recording
+no span is entered; under ``torch.profiler`` each query runs stage 1, the
+sweep, the combine and the finalize once each, in that order, inside its
+root span, and every host-sync span lies inside its stage; the block
+grid's ``slots`` and ``filled`` counters equal stage 1's block and pair
+counts."""
+import numpy as np
+import pytest
+import torch
+
+import raycore_tpu_torch as rt
+from raycore_tpu_torch.accel import dispatch
+from raycore_tpu_torch.ops import dense as t_dense
+from raycore_tpu_torch.ops import instanced as t_inst
+from raycore_tpu_torch.ops import regroup as t_pr
+from raycore_tpu_torch.utils import config
+
+CPU = torch.device("cpu")
+STAGES = ["raycore.stage1", "raycore.sweep", "raycore.combine",
+          "raycore.finalize"]
+PACK = t_pr.pack_presorted_cluster_major
+
+
+def grid_rays(side: int, half: float, z: float):
+    """A downward side x side grid over [-half, half]^2 at height z."""
+    xs = torch.linspace(-half, half, side)
+    gx, gy = torch.meshgrid(xs, xs, indexing="xy")
+    o = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                     torch.full((side * side,), z)], -1)
+    d = torch.zeros_like(o)
+    d[:, 2] = -1.0
+    return rt.Ray.create(o, d)
+
+
+@pytest.fixture(scope="module")
+def dense():
+    tris = rt.displaced_grid_mesh(n=32, extent=2.0, amplitude=0.3,
+                                  device=CPU)
+    return rt.build_dense(tris, cluster_size=64), grid_rays(48, 0.9, 3.0)
+
+
+@pytest.fixture(scope="module")
+def instanced():
+    rng = np.random.default_rng(5)
+    mgr = rt.TLAS(device=CPU)
+    for _ in range(6):
+        m = np.eye(3, 4, dtype=np.float32)
+        m[:, 3] = rng.uniform(-2.0, 2.0, 3)
+        mgr.push(rt.sphere_mesh(radius=0.6, n_theta=6, n_phi=8, device=CPU),
+                 m)
+    mgr.sync()
+    return mgr, rt.bake_instanced(mgr, cluster_size=32), \
+        grid_rays(32, 2.5, 6.0)
+
+
+QUERIES = {
+    "closest_hit_regrouped": lambda s, r: t_pr.closest_hit_regrouped(
+        s, r, tile=256),
+    "any_hit_regrouped": lambda s, r: t_pr.any_hit_regrouped(s, r,
+                                                             tile=256),
+    "closest_hit_dense_pallas_auto":
+        lambda s, r: t_dense.closest_hit_dense_pallas_auto(s, r, tile=256),
+    "closest_hit_instanced": lambda s, r: t_inst.closest_hit_instanced(
+        s, r, tile=256),
+}
+
+
+def run_query(name, dense, instanced):
+    if name == "closest_hit_instanced":
+        _, scene, rays = instanced
+    else:
+        scene, rays = dense
+    return QUERIES[name](scene, rays)
+
+
+def spans_of(fn):
+    """The ``raycore.*`` host events (name, start, end) recorded while
+    ``fn`` runs, in order of start."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    out = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events() if e.name.startswith("raycore.")
+           and e.device_type.name == "CPU"]
+    return sorted(out, key=lambda s: (s[1], -s[2]))
+
+
+def inside(a, b) -> bool:
+    return b[1] <= a[1] and a[2] <= b[2]
+
+
+def test_span_is_shared_and_inert_with_no_profiler():
+    assert config.span("raycore.a") is config.span("raycore.b")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert config.span("raycore.a") is not config.span("raycore.a")
+
+
+@pytest.mark.parametrize("route", ["regrouped", "any_hit", "worklist",
+                                   "instanced", "refresh"])
+def test_no_span_is_entered_with_no_profiler(monkeypatch, dense, instanced,
+                                             route):
+    def refuse(name):
+        raise AssertionError(f"span {name} entered with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(dispatch, "REGROUP_MIN_RAYS", 1024)
+    scene, rays = dense
+    mgr, iscene, irays = instanced
+    if route == "regrouped":
+        res = rt.closest_hit(scene, rays)
+    elif route == "any_hit":
+        res = rt.any_hit(scene, rays)
+    elif route == "worklist":
+        monkeypatch.setattr(dispatch, "REGROUP_MIN_RAYS", 1 << 19)
+        res = rt.closest_hit(scene, rays)
+    elif route == "instanced":
+        res = rt.closest_hit(iscene, irays)
+    else:
+        res = rt.closest_hit(rt.refresh_instances(iscene, mgr), irays)
+    assert bool(res.hit.any())
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_each_stage_once_in_order_and_waits_inside(dense, instanced, name):
+    spans = spans_of(lambda: run_query(name, dense, instanced))
+    stages = [s for s in spans if s[0] in STAGES]
+    assert [s[0] for s in stages] == STAGES
+    for a, b in zip(stages, stages[1:]):
+        assert a[2] <= b[1], (a, b)
+    waits = [s for s in spans if s[0].startswith("raycore.wait.")]
+    assert waits
+    for w in waits:
+        assert any(inside(w, s) for s in stages), w
+    assert len(spans) == len(stages) + len(waits)
+
+
+def test_the_wave_sweep_nests_in_stage_one(dense):
+    scene, rays = dense
+    spans = spans_of(lambda: t_pr.closest_hit_regrouped(scene, rays,
+                                                        tile=256, passes=2))
+    stage1 = [s for s in spans if s[0] == "raycore.stage1"]
+    sweeps = [s for s in spans if s[0] == "raycore.sweep"]
+    assert len(stage1) == 1 and len(sweeps) == 2
+    assert inside(sweeps[0], stage1[0]) and not inside(sweeps[1],
+                                                        stage1[0])
+    names = {s[0] for s in spans if inside(s, stage1[0])}
+    assert {"raycore.wait.wave", "raycore.wait.prune"} <= names
+
+
+@pytest.mark.parametrize("route", ["closest_hit", "any_hit", "instanced"])
+def test_the_root_span_holds_the_query(monkeypatch, dense, instanced,
+                                       route):
+    monkeypatch.setattr(dispatch, "REGROUP_MIN_RAYS", 1024)
+    scene, rays = dense
+    if route == "instanced":
+        _, scene, rays = instanced
+    entry = rt.any_hit if route == "any_hit" else rt.closest_hit
+    spans = spans_of(lambda: entry(scene, rays))
+    root = f"raycore.{'any_hit' if route == 'any_hit' else 'closest_hit'}"
+    assert spans[0][0] == root
+    assert [s[0] for s in spans if s[0] in STAGES] == STAGES
+    assert all(inside(s, spans[0]) for s in spans)
+
+
+def test_refresh_runs_in_its_span(instanced):
+    mgr, scene, _ = instanced
+    spans = spans_of(lambda: rt.refresh_instances(scene, mgr))
+    assert spans[0][0] == "raycore.refresh"
+    assert [s[0] for s in spans[1:]] == ["raycore.wait.transforms",
+                                         "raycore.wait.corners"]
+    assert all(inside(s, spans[0]) for s in spans[1:])
+
+
+def test_grid_counters_match_stage_one(monkeypatch, dense):
+    scene, rays = dense
+    monkeypatch.setattr(PACK, "slots", 0)
+    monkeypatch.setattr(PACK, "filled", 0)
+    o, d, t_min, t_max, _, G, TILE = t_pr._padded_batch(rays, 256, 32)
+    _, block_subs, _, (_, pairs, blocks) = t_pr._stage1_cm_core(
+        scene, o, d, t_min, t_max, TILE, G, 16)
+    assert pairs > 0 and blocks == block_subs.shape[0]
+    assert PACK.filled == pairs
+    assert PACK.slots == blocks * 16
+    # Slots past a cluster's last subgroup hold the dummy subgroup.
+    n_sub = o.shape[0] // G
+    assert int((block_subs != n_sub).sum()) == pairs
+
+
+def test_grid_counters_match_the_instanced_candidates(monkeypatch,
+                                                      instanced):
+    _, scene, rays = instanced
+    monkeypatch.setattr(PACK, "slots", 0)
+    monkeypatch.setattr(PACK, "filled", 0)
+    _, s1 = t_inst._query(scene, rays, 256, 32, 16)
+    _, _, candidates, blocks = s1.counts
+    assert candidates > 0
+    assert PACK.filled == candidates
+    assert PACK.slots == blocks * 16
