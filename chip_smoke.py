@@ -636,8 +636,8 @@ def main():
 
     o, d = morton_grid_rays(1024, dev)
     rays = rt.Ray.create(o, d)
-    po, pd, ptmin, ptmax, R0, G, TILE = ops_regroup._padded_batch(
-        rays, 2048, 32)
+    po, pd, ptmin, ptmax, R0, G, TILE = ops_regroup._swept_batch(
+        rays, 2048, 32)[:7]
     SPB = 16
 
     # 4. K1 against its plain version, bitwise.
@@ -1221,10 +1221,11 @@ def regroup_grid_check(what, ops_regroup, scene, block_cid, block_subs, tbl,
 
 def regroup_occlusion_check(ops_dense, ops_regroup, rt, scene, rays):
     """The regrouped any_hit's kernels against their plain versions on its
-    own operands: the rays with t_min forced to 0, padded to tile 2048."""
+    own operands: the rays with t_min forced to 0, padded to tile 2048, in
+    the order the engine sweeps them (``ops/regroup.py:_swept_batch``)."""
     rays0 = rt.Ray.create(rays.o, rays.d, t_max=rays.t_max)
-    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
-        rays0, 2048, 32)
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._swept_batch(
+        rays0, 2048, 32)[:7]
     rows = (po, pd, ptmin, ptmax)
     phase_a_check("K1 regrouped any_hit", ops_dense, scene, rows, TILE)
     k2 = regroup_sweep_check("K2 regrouped any_hit", ops_regroup, scene,
@@ -1573,8 +1574,8 @@ def multiwave_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
         raise AssertionError(f"blobby 1M: hit_frac {hit_frac}")
 
     # The swept rows of each passes, from stage 1 on the query's rays.
-    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
-        rays, 2048, 32)
+    po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._swept_batch(
+        rays, 2048, 32)[:7]
     SPB = 16
     rows = (po, pd, ptmin, ptmax)
     phase_a_check(f"K1 (phase {phase})", ops_dense, scene, rows, TILE)
@@ -2523,7 +2524,8 @@ def kept_queries(dispatch):
 def frame_kernels(phase, rt, ops_dense, ops_regroup, scene, queries):
     """K1 and K2 on the operands of each regrouped query of a frame, as
     the engine builds them (any_hit's rays with t_min forced to 0, padded
-    to tiles of 2048 in subgroups of 32): K1 bitwise against its plain
+    to tiles of 2048 in subgroups of 32, in the order the engine sweeps
+    them, ``ops/regroup.py:_swept_batch``): K1 bitwise against its plain
     version and its model; K2 against its plain version and bit for bit
     against its kernel-order model on sampled blocks. Returns, for each
     kernel, the largest error and the sums over the queries of its time
@@ -2545,8 +2547,8 @@ def frame_kernels(phase, rt, ops_dense, ops_regroup, scene, queries):
         rays = q["rays"]
         if q["kind"] == "shadow":
             rays = rt.Ray.create(rays.o, rays.d, t_max=rays.t_max)
-        po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
-            rays, 2048, 32)
+        po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._swept_batch(
+            rays, 2048, 32)[:7]
         rows = (po, pd, ptmin, ptmax)
         what = f"bounce {i // 2} {q['kind']}"
         stats, bounds, ek, err, slow = phase_a_check(
@@ -2737,8 +2739,8 @@ def pathtracer_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
         query = rt.closest_hit if kind == "closest" else rt.any_hit
         if kind == "shadow":      # any_hit's stage 1 runs with t_min = 0
             qrays = rt.Ray.create(qrays.o, qrays.d, t_max=qrays.t_max)
-        po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._padded_batch(
-            qrays, 2048, 32)
+        po, pd, ptmin, ptmax, _, G, TILE = ops_regroup._swept_batch(
+            qrays, 2048, 32)[:7]
         q_ms = cuda_ms(lambda: query(scene, qrays), 3)
         st1 = lambda: ops_regroup._stage1_cm_core(scene, po, pd, ptmin,
                                                   ptmax, TILE, G, 16)

@@ -26,6 +26,22 @@ cluster's SUBC sub-chunks of C/SUBC triangles, and kernel K5
 that share a sub-cluster. Dispatch takes it for large batches on scenes
 with sub_chunks >= 2.
 
+Before phase A the driver looks at the order of the rays
+(``_swept_batch``): where neighbouring rays change direction octant (the
+three sign bits of d > 0) more than 7 times (``octant_gate``), it sweeps
+the batch stably sorted by octant and puts the answers back in the
+caller's order. A subgroup of G rays or a tile of phase A that mixes
+octants has an interval of inverse directions that spans 0, so the
+interval tests cull almost nothing for it (a renderer's shadow rays
+toward two lights drawn per ray; a camera's rays in pixel order, whose
+tiles of whole rows straddle the image's centre line). A batch in octant
+order, or in at most 8 runs of one octant, changes octant at most 7
+times, mixes at most 7 tiles and 7 subgroups, and is swept as given, for
+the cost of one count and its readback. Each ray's answer is the least
+(t key, prim) over the triangles that pass the exact test in the
+clusters the conservative cull keeps, so it does not depend on the
+order.
+
 The block grids are sized exactly from the data (a host sync on each
 compaction and one ``.item()`` on each block count); nothing is sized by
 a capacity guess. Only the compact stage 1 is ported; every payload
@@ -33,10 +49,14 @@ a capacity guess. Only the compact stage 1 is ported; every payload
 
 Tracing: each stage runs in a profiler span (``utils/config.py:span``),
 ``raycore.stage1``, ``raycore.sweep`` (nested in stage 1 for the
-multiwave's wave grid), ``raycore.combine`` and ``raycore.finalize``, and
-each host sync in a ``raycore.wait.<site>`` span;
-``pack_presorted_cluster_major`` counts the grid's subgroup slots and the
-filled ones (``slots``, ``filled``).
+multiwave's wave grid), ``raycore.combine`` and ``raycore.finalize``; the
+octant order in ``raycore.reorder`` spans: the gate's count (its
+readback in ``raycore.wait.octants``) with the sort and gathers where it
+engages, and the way back to the caller's order; each host sync in a
+``raycore.wait.<site>`` span. ``pack_presorted_cluster_major`` counts
+the grid's subgroup slots and the filled ones (``slots``, ``filled``),
+``octant_gate`` the queries it saw, those it ordered and the octant
+changes it found (``checked``, ``engaged``, ``boundaries``).
 """
 from __future__ import annotations
 
@@ -533,10 +553,14 @@ def merge_pass1(key, pair, k1, p1):
 
 
 def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
-                 payload: str = "full", wave: WaveSweep | None = None):
+                 payload: str = "full", wave: WaveSweep | None = None,
+                 order=None):
     """Sweep, grouped combine, the merge of the wave sweep's results
     (``wave``, passes >= 2) and finalize. ``o``/``d`` are the unpadded
-    rays; ``R_pad`` is the padded ray count."""
+    rays as swept; ``R_pad`` is the padded ray count. ``order``: the
+    caller's index of each swept ray (``_swept_batch``), where given; the
+    winners and their rays go back to the caller's order before the
+    finalize."""
     R = o.shape[0]
     n_sub = R_pad // G
     with span("raycore.sweep"):
@@ -549,8 +573,14 @@ def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
         if wave is not None:
             out_key, out_pair = merge_pass1(out_key, out_pair, wave.k1,
                                             wave.p1)
+    key, pair = out_key[:R], out_pair[:R]
+    if order is not None:
+        with span("raycore.reorder"):
+            # Swept ray i is the caller's ray order[i].
+            back = lambda a: torch.empty_like(a).index_copy_(0, order[:R], a)
+            key, pair, o, d = (back(a) for a in (key, pair, o, d))
     with span("raycore.finalize"):
-        return _finalize(scene, out_key[:R], out_pair[:R], o, d, payload)
+        return _finalize(scene, key, pair, o, d, payload)
 
 
 def _finalize(scene, key, pair, o, d, payload: str):
@@ -578,18 +608,75 @@ def _padded_batch(rays, tile: int, subgroup: int):
     return (*pad_rays(o, d, t_min, t_max, TILE), R0, G, TILE)
 
 
+# Octant changes between neighbouring rays in a batch in octant order: at
+# most one at each boundary between the 8 octants.
+OCTANT_BOUNDARIES = 7
+
+
+def octant_keys(d):
+    """Each ray's direction octant, the three sign bits of d > 0, as
+    uint8 (R,)."""
+    pos = (d > 0).view(torch.uint8)
+    return torch.add(torch.add(pos[:, 0], pos[:, 1], alpha=2), pos[:, 2],
+                     alpha=4)
+
+
+def octant_gate(octant) -> bool:
+    """Whether the rays of a flat batch, with direction octants
+    ``octant`` (R,), change octant between neighbours more than
+    ``OCTANT_BOUNDARIES`` times, so that more than 7 of its tiles or
+    subgroups may mix octants. One host sync reads the count. Adds 1 to
+    the counter ``checked``, the changes found to ``boundaries`` and,
+    where it returns True, 1 to ``engaged``."""
+    with span("raycore.wait.octants"):
+        n = int((octant[1:] != octant[:-1]).sum().item())
+    octant_gate.checked += 1
+    octant_gate.boundaries += n
+    engaged = n > OCTANT_BOUNDARIES
+    octant_gate.engaged += engaged
+    return engaged
+
+
+octant_gate.checked = 0
+octant_gate.engaged = 0
+octant_gate.boundaries = 0
+
+
+def _swept_batch(rays, tile: int, subgroup: int):
+    """The regrouped driver's operands: ``_padded_batch``'s, stably sorted
+    by direction octant where ``octant_gate`` engages, each octant in the
+    caller's order, else as given. Returns (o, d, t_min, t_max, R0, G,
+    TILE, order), ``order[i]`` the caller's index of swept ray i, or None
+    where the batch is swept as given. The padding (d = 1, the last
+    octant) stays last."""
+    o, d, t_min, t_max, R0, G, TILE = _padded_batch(rays, tile, subgroup)
+    order = None
+    with span("raycore.reorder"):
+        octant = octant_keys(d)
+        if octant_gate(octant[:R0]):
+            order = torch.sort(octant, stable=True).indices
+            o, d, t_min, t_max = (a[order] for a in (o, d, t_min, t_max))
+    return o, d, t_min, t_max, R0, G, TILE, order
+
+
 def _closest_hit_regrouped_cm(scene, rays, *, tile: int, subgroup: int,
                               spb: int, payload: str = "full",
                               passes: int = 1):
-    """Compact-stage-1 driver: pad the flat batch to whole tiles, run both
-    stages, restore the batch shape."""
+    """Compact-stage-1 driver: pad the flat batch to whole tiles, sweep a
+    batch whose rays change direction octant more than 7 times stably
+    sorted by octant (``_swept_batch``), put each ray's winner back in
+    the caller's order before the finalize, restore the batch shape. Each
+    ray's answer is the least (t key, prim) over the triangles that pass
+    the exact test in the clusters the conservative cull keeps, so the
+    order changes which clusters are swept, never an answer."""
     batch = rays.batch_shape
-    o, d, t_min, t_max, R0, G, TILE = _padded_batch(rays, tile, subgroup)
+    o, d, t_min, t_max, R0, G, TILE, order = _swept_batch(rays, tile,
+                                                          subgroup)
     block_cid, block_subs, tbl, *rest = _stage1_cm_core(
         scene, o, d, t_min, t_max, TILE, G, spb, waves=passes - 1)
     wave = rest[1] if passes > 1 else None
     res = _stage2_core(scene, block_cid, block_subs, tbl, o[:R0], d[:R0],
-                       G, spb, o.shape[0], payload, wave)
+                       G, spb, o.shape[0], payload, wave, order)
     return res.map(lambda a: a.reshape(batch + tuple(a.shape[1:])))
 
 
@@ -633,7 +720,13 @@ def closest_hit_regrouped(scene, rays, *, tile: int = 512, subgroup: int = 32,
     and prunes the rest against the best t found (``_stage1_cm_core``);
     "auto" resolves through ``auto_passes``. The results do not depend on
     it. The default is 1, as ``docs/engines.md`` documents (the JAX
-    package's signature says 2)."""
+    package's signature says 2).
+
+    A batch whose neighbouring rays change direction octant more than 7
+    times, so that its tiles or subgroups of ``subgroup`` rays may mix
+    octants, is swept stably sorted by octant and answered in the
+    caller's order (``_swept_batch``); the answers do not depend on the
+    order."""
     if scene.sub_chunks != 1:
         raise ValueError("regrouped engine requires sub_chunks=1 scenes")
     passes = resolve_passes(scene, passes)
@@ -649,7 +742,9 @@ def any_hit_regrouped(scene, rays, *, tile: int = 2048, subgroup: int = 32,
     """Occlusion via the regrouped sweep: the closest-hit candidates and
     sweep with t_min forced to 0, so the occluder is the nearest hit in
     [0, t_max]. Only hit, prim_idx and instance_idx are contractual; t,
-    barycentric and the triangle are zeros."""
+    barycentric and the triangle are zeros. A batch that mixes direction
+    octants (shadow rays toward several lights) is swept in octant order,
+    as ``closest_hit_regrouped`` says."""
     rays0 = dataclasses.replace(rays, t_min=torch.zeros_like(rays.t_min))
     return closest_hit_regrouped(scene, rays0, tile=tile, subgroup=subgroup,
                                  spb=spb, payload="occlusion")

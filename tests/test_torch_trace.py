@@ -2,7 +2,10 @@
 (``raycore_tpu_torch/utils/config.py:span``): with no profiler recording
 no span is entered; under ``torch.profiler`` each query runs stage 1, the
 sweep, the combine and the finalize once each, in that order, inside its
-root span, and every host-sync span lies inside its stage; the block
+root span, and every host-sync span lies inside its stage; the regrouped
+driver's octant gate (its readback in ``raycore.wait.octants``), with the
+sort where it engages, runs in a ``raycore.reorder`` span before stage 1,
+and the way back in one between the combine and the finalize; the block
 grid's ``slots`` and ``filled`` counters equal stage 1's block and pair
 counts."""
 import numpy as np
@@ -20,6 +23,7 @@ CPU = torch.device("cpu")
 STAGES = ["raycore.stage1", "raycore.sweep", "raycore.combine",
           "raycore.finalize"]
 PACK = t_pr.pack_presorted_cluster_major
+REORDER = "raycore.reorder"
 
 
 def grid_rays(side: int, half: float, z: float):
@@ -131,9 +135,13 @@ def test_each_stage_once_in_order_and_waits_inside(dense, instanced, name):
         assert a[2] <= b[1], (a, b)
     waits = [s for s in spans if s[0].startswith("raycore.wait.")]
     assert waits
+    reorder = [s for s in spans if s[0] == REORDER]
     for w in waits:
-        assert any(inside(w, s) for s in stages), w
-    assert len(spans) == len(stages) + len(waits)
+        assert any(inside(w, s) for s in stages + reorder), w
+    # The regrouped driver's octant gate (the grid's rays are in one
+    # octant: no sort, no way back).
+    assert len(reorder) == (1 if name.endswith("_regrouped") else 0)
+    assert len(spans) == len(stages) + len(waits) + len(reorder)
 
 
 def test_the_wave_sweep_nests_in_stage_one(dense):
@@ -147,6 +155,35 @@ def test_the_wave_sweep_nests_in_stage_one(dense):
                                                         stage1[0])
     names = {s[0] for s in spans if inside(s, stage1[0])}
     assert {"raycore.wait.wave", "raycore.wait.prune"} <= names
+
+
+def tilted(rays):
+    """The grid's rays tilted alternately toward +x+y and -x-y, so every
+    subgroup of consecutive rays mixes two direction octants."""
+    d = rays.d.clone()
+    s = torch.where(torch.arange(d.shape[0]) % 2 == 0, 0.3, -0.3)
+    d[:, 0], d[:, 1] = s, s
+    return rt.Ray.create(rays.o, d / d.norm(dim=1, keepdim=True))
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["one-octant", "mixed"])
+def test_the_octant_gate_reorders_only_a_mixed_batch(dense, mixed):
+    """The gate's count and readback, and where it engages the sort and
+    gathers, in a reorder span before stage 1; where it engages the
+    winners back to the caller's order between the combine and the
+    finalize."""
+    scene, rays = dense
+    rays = tilted(rays) if mixed else rays
+    spans = spans_of(lambda: t_pr.any_hit_regrouped(scene, rays, tile=256))
+    gate = [s for s in spans if s[0] == "raycore.wait.octants"]
+    reorder = [s for s in spans if s[0] == REORDER]
+    stages = [s for s in spans if s[0] in STAGES]
+    assert [s[0] for s in stages] == STAGES and len(gate) == 1
+    assert inside(gate[0], reorder[0]) and reorder[0][2] <= stages[0][1]
+    assert len(reorder) == (2 if mixed else 1)
+    if mixed:
+        assert stages[2][2] <= reorder[1][1]
+        assert reorder[1][2] <= stages[3][1]
 
 
 @pytest.mark.parametrize("route", ["closest_hit", "any_hit", "instanced"])
