@@ -40,6 +40,22 @@ def test_every_cell_resolves_to_its_files(w):
                                             "tri_gap"}
 
 
+# The traffic parameter that counts a loop's slots: a query loop cycles
+# through its ray batches, a frame loop through its transform sets.
+SLOTS = {"query": "batches", "frame": "sets"}
+
+
+@pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
+def test_every_cell_warms_each_slot_and_traces_enough_calls(w):
+    """Set-up visits every slot once, so no window call is the first on
+    its slot (the allocator grows its pool there), and the traced part
+    spans enough calls to read a per-call figure from."""
+    cell = SPECS.json("cells", w["name"])
+    slots = SPECS.json("traffic", w["traffic"])["params"][SLOTS[cell["loop"]]]
+    assert cell["warm_calls"] >= slots
+    assert cell["trace"]["calls"] >= 8
+
+
 @pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
 def test_every_configuration_resolves_to_its_file(c):
     assert set(c) == {"name", "source", "file", "reduced", "why"}
