@@ -7,7 +7,11 @@ the program, and draws the run's sample of kept answers. It reads the
 judged numbers of the program's answers (the lower readings) and of the
 control's: the reference itself in the program's place, computed at
 TF32 (``reference/tracer.py``), the upper readings. The control returns
-the generated triangle it names, so its ``tri_gap`` is 0. Each side's
+the generated triangle it names, so its ``tri_gap`` is 0. Each sample
+is traced by its own kind (``harness.occlusion``); where the loop has
+``judge``, its own numbers join both sides, the control's from
+``judge(sample, v, control=True)``: the loop's reference at TF32 or
+float32 in the program's place. Each side's
 numbers go through the harness's verdict with the cell's limits. It
 prints one JSON line per seed and, last, the largest program reading and
 the smallest control reading of each number, and on how many seeds each
@@ -56,19 +60,19 @@ def main(argv=None, roots=None, device=None, out=None) -> int:
         for s in samples:
             v = loop.triangles(s["key"])
             r = s["rays"]
+            occlusion = harness.occlusion(loop, s)
             args_ = (v, r["o"], r["d"], r["t_min"], r["t_max"])
-            ref = tracer.trace(*args_, occlusion=loop.occlusion)
-            prog.append(judge.numbers(v, r, s["got"],
-                                      occlusion=loop.occlusion, ref=ref))
-            c = tracer.trace(*args_, occlusion=loop.occlusion,
-                             precision="tf32")
+            ref = tracer.trace(*args_, occlusion=occlusion)
+            prog.append(harness.judged(loop, s, v, ref=ref))
+            c = tracer.trace(*args_, occlusion=occlusion, precision="tf32")
             got = dict(hit=c["hit"], idx=c["idx"], t=c["t"])
-            if not loop.occlusion:
+            if "bary" in s["got"]:
                 got["bary"] = c["bary"]
-            nums = judge.numbers(v, r, got, occlusion=loop.occlusion,
-                                 ref=ref)
+            nums = judge.numbers(v, r, got, occlusion=occlusion, ref=ref)
             if "tri_gap" in prog[-1]:
                 nums["tri_gap"] = 0.0
+            if hasattr(loop, "judge"):
+                nums = judge.joined(nums, loop.judge(s, v, control=True))
             ctl.append(nums)
         prog, ctl = judge.combine(prog), judge.combine(ctl)
         prog_all.append(prog)

@@ -20,11 +20,27 @@ The metrics are read by their readers (``metrics/<name>.py``): the
 cell's end-to-end ones untraced, its per-layer ones traced.
 
 A loop (``loops/<loop>.py``) has a class ``Loop(ctx)`` with
-``rays_per_call``, ``work_bytes`` (``core/work.py``), ``occlusion``,
-``kept`` (the answers held for the check), ``call(k)``, ``keep(k,
-result)``, ``complete()`` (an answer kept for every slot checked), ``samples(rng, rays_per_slot)``, ``release()`` and
-``triangles(key)`` (world-space float64 triangles of a sample), and
-optionally ``choose(rng, slots)`` (which answers to keep).
+
+    rays_per_call, work_bytes   what the readers count (``core/work.py``)
+    occlusion                   the kind of a sample that names none
+    kept                        the answers held for the check
+    call(k), keep(k, result)    one call of the window, and what it keeps
+    complete()                  an answer kept for every slot checked
+    samples(rng, rays_per_slot) the checked samples, drawn from ``rng``
+    release()                   drops the program's state
+    triangles(key)              world-space float64 triangles of a sample
+
+and optionally ``choose(rng, slots)`` (which answers to keep) and
+``judge(sample, v, control=False)`` (its own numbers, below).
+
+A sample is a dict: ``key`` (for ``triangles``), ``rays`` and ``got``
+(``core/judge.py:numbers``), and optionally ``occlusion``, its kind: an
+occlusion answer, or a closest hit. One loop can so hand one check both
+kinds side by side. Each sample is held to the reference by its kind
+and, where the loop has ``judge``, by the numbers ``judge(sample, v)``
+returns for it: widest gaps of what the loop's call derived from the
+program's answers, against a plain float64 reference of its own under
+``cardbench/reference/`` (``v`` is the sample's ``triangles``).
 """
 from __future__ import annotations
 
@@ -209,12 +225,27 @@ def check(ctx: Context, loop):
     readings = []
     for s in samples:
         v = loop.triangles(s["key"])
-        readings.append(judge.numbers(v, s["rays"], s["got"],
-                                      occlusion=loop.occlusion))
+        readings.append(judged(loop, s, v))
         del v
-    failed = sum(not all(ok for _, _, ok in judge.verdict(
-        r, chk["limits"]).values()) for r in readings)
+    failed = sum(not judge.passes(r, chk["limits"]) for r in readings)
     return judge.combine(readings), failed
+
+
+def occlusion(loop, sample) -> bool:
+    """A sample's kind: its own where it names one, else the loop's."""
+    return sample.get("occlusion", loop.occlusion)
+
+
+def judged(loop, sample, v, ref=None) -> dict:
+    """The numbers of one sample: the program's answers held to the
+    reference by the sample's kind, and the loop's own numbers where it
+    has ``judge``. ``ref`` is the float64 reference's answer when already
+    computed."""
+    nums = judge.numbers(v, sample["rays"], sample["got"],
+                         occlusion=occlusion(loop, sample), ref=ref)
+    if hasattr(loop, "judge"):
+        nums = judge.joined(nums, loop.judge(sample, v))
+    return nums
 
 
 def power_limit_w():

@@ -29,6 +29,26 @@ gap over the sample, each with its own limit (the cell file's
 
 An answer is judged by what it says: ties between triangles at one t,
 and hits an edge's rounding moves to the neighbour, read near 0.
+
+Two extensions let one check judge a loop of several queries and the
+work between them (``core/harness.py``'s loop contract):
+
+- A kind per sample. A sample that carries ``occlusion`` is judged by
+  that kind, in ``numbers`` and in the control's reference; one without
+  it by its loop's ``occlusion``. Closest hits and occlusion answers of
+  one loop then sit side by side, each held to its own numbers.
+- A loop's own numbers. Where the loop has ``judge(sample, v,
+  control=False)``, the numbers it returns join the sample's reading
+  (``joined``): each a widest gap over the sample (``widest``), of what
+  the loop's call derived from the program's answers against a plain
+  float64 reference under ``cardbench/reference/``. The cell's
+  ``check.limits`` hold them as they hold the five above; with
+  ``control=True`` the loop puts its reference, at TF32 or float32, in
+  the program's place (``control.py``), so each limit is set between the
+  two readings as the five are.
+
+A sample passes when each of its numbers lies within its limit
+(``passes``); a limit that no sample reads fails the combined verdict.
 """
 from __future__ import annotations
 
@@ -44,7 +64,9 @@ from cardbench.reference import tracer
 UNNAMED = 1.0e30
 
 
-def _widest(x: torch.Tensor) -> float:
+def widest(x: torch.Tensor) -> float:
+    """The widest of gaps ``x``, 0 where there are none, ``UNNAMED`` for
+    one that is not finite."""
     if x.numel() == 0:
         return 0.0
     x = torch.where(torch.isfinite(x), x, torch.full_like(x, UNNAMED))
@@ -78,18 +100,18 @@ def numbers(v, rays, got, *, occlusion: bool, ref=None) -> dict:
     if not occlusion:
         both = hit & ref["hit"]
         t_ref = ref["t"].double()
-        out["t_gap"] = _widest(((got["t"].double() - t_ref)
-                                / t_ref.abs())[both])
-    out["claim_gap"] = _widest(claim[hit])
+        out["t_gap"] = widest(((got["t"].double() - t_ref)
+                               / t_ref.abs())[both])
+    out["claim_gap"] = widest(claim[hit])
     if "bary" in got:
         named = tracer.barycentric(v, got["idx"].long(), o, d)
-        out["bary_gap"] = _widest(
+        out["bary_gap"] = widest(
             (got["bary"].double() - named).abs().amax(1)[hit])
     if "payload" in got:
-        out["tri_gap"] = _widest(
+        out["tri_gap"] = widest(
             (got["payload"].double() - got["want"].double()).abs()
             .amax(1)[hit])
-    out["missed_by"] = _widest(ref["depth"].double()[~hit & ref["hit"]])
+    out["missed_by"] = widest(ref["depth"].double()[~hit & ref["hit"]])
     return out
 
 
@@ -100,6 +122,21 @@ def combine(readings) -> dict:
         for k, x in r.items():
             out[k] = max(out.get(k, 0.0), x)
     return out
+
+
+def joined(nums: dict, own: dict) -> dict:
+    """A sample's reading with a loop's own numbers joined to it."""
+    clash = sorted(set(nums) & set(own))
+    if clash:
+        raise ValueError(f"a loop's own numbers reuse the names {clash}")
+    return {**nums, **{k: float(x) for k, x in own.items()}}
+
+
+def passes(reading: dict, limits: dict) -> bool:
+    """Whether one sample's reading passes: each of its numbers within
+    its limit; a number without a limit fails."""
+    return all(ok for _, _, ok in verdict(
+        reading, {k: x for k, x in limits.items() if k in reading}).values())
 
 
 def verdict(nums: dict, limits: dict) -> dict:
