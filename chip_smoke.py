@@ -10,7 +10,7 @@ count set to 0 just before it and read just after:
 
   1. environment: card name and power limit (nvidia-smi), torch, CUDA and
      nvcc versions; no CUDA device is an error (there is no CPU fallback);
-  2. build the kernels (K1-K6) from raycore_tpu_torch/csrc;
+  2. build the kernels (K1-K7) from raycore_tpu_torch/csrc;
   3. build the headline scene (displaced grid n=707, 999,698 triangles,
      C=256), cold and warm;
   4. kernel K1 (phase A) against its plain version and its model
@@ -23,9 +23,10 @@ count set to 0 just before it and read just after:
      sub-chunk per cluster and one block per CTA on the same blocks,
      bitwise equal to K2 and timed beside it;
   6. the headline query, closest_hit on 1024^2 Morton-ordered downward rays
-     (the regrouped engine, K1 and K2): median of 5 runs, both kernels
-     launched, hit_frac 1.0 at bench.py's 4 decimals and no miss off the
-     x == y line (those rays run exactly along the mesh's diagonal edges);
+     (the regrouped engine, K1, K7 and K2): median of 5 runs, the three
+     kernels launched, hit_frac 1.0 at bench.py's 4 decimals and no miss
+     off the x == y line (those rays run exactly along the mesh's diagonal
+     edges);
      the scene's depth_layers and the passes dispatch gives it; the
      regrouped engine at passes 1 and 4 (what "auto" resolves to there)
      timed in turns, each held to the query's result ray for ray;
@@ -48,7 +49,7 @@ count set to 0 just before it and read just after:
      1,048,576 the regrouped occlusion (K2); hit masks against the
      oracle, and every occluder checked as a genuine intersection;
  12. the 1024^2 headline rays on phase 10's sub_chunks=4 scene, which
-     dispatch sends to the packed engine (K1 and K5, C_eff = 64): the
+     dispatch sends to the packed engine (K1, K7 and K5, C_eff = 64): the
      query's median time, no miss off the x == y line, phase 6's
      regrouped result ray for ray (equal hit masks, t within 2e-6
      relative, a differing prim only as such a tie; the count of rays
@@ -83,8 +84,8 @@ count set to 0 just before it and read just after:
  19. the blobby 1M cell (bench.py's RAYCORE_BENCH_SCENE=blobby:
      blobby_mesh(707, 707), C=256, the 1024^2 Morton grid), the ordered
      multiwave's: the scene's build, depth_layers and the passes that
-     "auto" and dispatch resolve; closest_hit through dispatch (K1 once,
-     K2 once or, on the multiwave route, twice); the regrouped engine at
+     "auto" and dispatch resolve; closest_hit through dispatch (K1 and K7
+     once, K2 once or, on the multiwave route, twice); the regrouped engine at
      passes 1, 2 and 4 timed in turns, with each one's swept (subgroup,
      cluster) rows; K2 against its plain version and bit for bit against
      its kernel-order model on sampled blocks of passes=4's wave grid and
@@ -95,7 +96,7 @@ count set to 0 just before it and read just after:
      defaults): 256 instances of three base meshes pushed one by one into
      a TLAS, sync and bake_instanced (C=128), cold and warm; closest_hit
      on a 1024^2 downward grid through dispatch (the instanced engine:
-     K1 once and K2 once, in its pairrow mode, and no other kernel); five
+     K1, K7 and K2, in its pairrow mode, once each and no other kernel); five
      frames that move every instance, each refresh_instances plus the
      query, in Mrays/s; K1 bitwise against its plain version and K2
      against its plain version and bit for bit against its kernel-order
@@ -108,9 +109,9 @@ count set to 0 just before it and read just after:
      its defaults, BASELINE config #5): the heightfield of phase 3 with
      two materials, 1024^2 pixels, 4 bounces, through
      render/pathtracer.py:trace_paths_staged, 8 queries of 1,048,576 rays
-     a frame (the regrouped engine: K1 and K2 once a query and no other
-     kernel); one warm-up frame, then frames seeded 0, 1 and 2 timed whole
-     (CUDA events, host syncs included): median, range, Mrays/s; a frame
+     a frame (the regrouped engine: K1, K7 and K2 once a query and no
+     other kernel); one warm-up frame, then frames seeded 0, 1 and 2 timed
+     whole (CUDA events, host syncs included): median, range, Mrays/s; a frame
      with every query synced and timed (live rays, closest, shadow,
      glue); seed 0 twice bitwise equal; the image finite, in [0, 1], mean
      above 0.01; bounce 2's closest query, 4096 sampled live rays,
@@ -161,11 +162,20 @@ count set to 0 just before it and read just after:
      query on the headline (K1 and K2 once per rank) against phase 6's
      result, and distributed_illumination and distributed_closest_hit on
      a two-instance StaticTLAS against the single process.
+ 28. kernel K7 (the subgroup refine, ops/regroup.py:refine_pairs) on the
+     1M primary query's operands (phase 6's rays) and on the 1M shadow
+     query of the benchmark's two lights, swept in octant order: each
+     query through its entry point (K1, K7 and K2 once each); on the
+     operands the engine builds (``_swept_batch``), K1 bitwise against
+     its plain version and its model, then K7 the same; the refine's keep
+     share; K7's time (a CUDA graph of 50 calls, and calls launched from
+     the host back to back) beside its bound and its plain version's.
 
-Every query path (phases 6, 8-14 and 19-23) also holds the kernels it launched
-against their plain versions on that path's own operands: K1 bitwise on
-its phase-A inputs (and against its model), and its sweep kernel (K2-K6)
-on its own blocks or rays. Every kernel that a path does not name must not launch on it.
+Every query path (phases 6, 8-14, 19-23 and 28) also holds the kernels it
+launched against their plain versions on that path's own operands: K1
+bitwise on its phase-A inputs (and against its model), and its sweep
+kernel (K2-K6) on its own blocks or rays (K7 in phase 28). Every kernel
+that a path does not name must not launch on it.
 Phases 8-11 also hold K3 and K4 bit for bit against their kernel-order
 model (ops/dense.py:kernel_order_hits) on SAMPLE_TILES sampled tiles with
 all their blocks, and phase 11 counts K4's tests per warp beside the
@@ -185,8 +195,9 @@ the headline and on the rounds engine's headline query; K2 three
 times: on the headline, on the blobby cell's multiwave path and on the
 256-instance frame in its pairrow mode; K1 and K2 once more on the
 path-traced frame, with one frame's launches and the sums of their
-times and bounds over its 8 queries; the probe P1 three times, its
-loop, onehot and take kernels); the line
+times and bounds over its 8 queries; K7 twice, on the 1M primary and
+shadow queries; the probe P1 three times, its loop, onehot and take
+kernels); the line
 before it the script's wall time; the last line is {"ok": true,
 "device": {...}}.
 """
@@ -273,11 +284,16 @@ SLAB_FLOPS = 12
 BRUTE_U_FLOPS = 9 + 5 + 1 + 3 + 5 + 1
 BRUTE_V_FLOPS = 9 + 5 + 1 + 1
 BRUTE_T_FLOPS = 5 + 1
-# Phase A's fast arithmetic (csrc/phase_a.cu:entry_fast) for one (tile,
+# Phase A's fast arithmetic (csrc/entry.cuh:entry_fast) for one (tile,
 # cluster) pair: per axis 2 differences, 4 products, 6 min/max and the
 # t_lo / t_hi updates (14), then the entry's max, the exit's min and their
 # compare. Its selects and the wide test are not counted.
 K1_PAIR_FLOPS = 3 * 14 + 3
+# The subgroup refine (K7) computes K1's entry for each (pair, subgroup).
+K7_ENTRY_FLOPS = K1_PAIR_FLOPS
+# The benchmark's shadow cell's two lights (cardbench/traffic/shadow2-1m):
+# rays toward them from the headline surface mix two direction octants.
+REFINE_LIGHTS = ((2.5, -2.5, 4.0), (-2.0, 2.0, 3.5))
 # The dense sweep's cell: sphere_mesh(n_theta, n_phi) (65,024 triangles),
 # a BRUTE_SIDE^2 pinhole view, and the subset its plain version checks.
 BRUTE_SPHERE = (128, 256)
@@ -699,6 +715,7 @@ def main():
     del k2
 
     counters = {"phase_a": ops_dense.phase_a,
+                "refine_pairs": ops_regroup.refine_pairs,
                 "regroup_sweep": ops_regroup.run_regrouped,
                 "worklist_sweep": ops_dense.run_worklist,
                 "occlusion_sweep": ops_dense.run_occlusion,
@@ -738,7 +755,7 @@ def main():
 
     q_ms = cuda_ms(query, 5)
     launches = read_counts("headline closest_hit",
-                           ["phase_a", "regroup_sweep"])
+                           ["phase_a", "refine_pairs", "regroup_sweep"])
     hit_frac = float(res.hit.float().mean())
     # The rays with x == y run exactly along the grid cells' diagonal
     # edges, where neither the exact oracle nor the featurized test (whose
@@ -879,7 +896,8 @@ def main():
     k4 = None
     for name, srays, want in (
             ("512^2", shadow_5, ["phase_a", "occlusion_sweep"]),
-            ("1024^2", shadow_1m, ["phase_a", "regroup_sweep"])):
+            ("1024^2", shadow_1m, ["phase_a", "refine_pairs",
+                                   "regroup_sweep"])):
         zero_counts()
         occ = rt.any_hit(scene, srays)
         torch.cuda.synchronize()
@@ -933,7 +951,7 @@ def main():
     res_p = rt.closest_hit(scene4, rays)
     torch.cuda.synchronize()
     launches_p = read_counts("packed closest_hit",
-                             ["phase_a", "packed_sweep"])
+                             ["phase_a", "refine_pairs", "packed_sweep"])
     k5 = packed_phase(12, rt, ops_dense, ops_regroup, scene4, rays,
                       lambda: rt.closest_hit(scene4, rays), res_p, head,
                       diag, launches_p)
@@ -947,7 +965,7 @@ def main():
     res_c = ops_regroup.closest_hit_packed(scene, rays)
     torch.cuda.synchronize()
     launches_c = read_counts("packed closest_hit, sub_chunks=1",
-                             ["phase_a", "packed_sweep"])
+                             ["phase_a", "refine_pairs", "packed_sweep"])
     packed_phase(13, rt, ops_dense, ops_regroup, scene, rays,
                  lambda: ops_regroup.closest_hit_packed(scene, rays), res_c,
                  head, diag, launches_c)
@@ -995,6 +1013,12 @@ def main():
 
     # 27. Ray sharding in gloo ranks on the one card.
     sharding_phase(27, rt, dev, o, d, head, diag)
+
+    # 28. K7 on the 1M primary and the 1M two-light shadow queries.
+    k7 = refine_phase(28, rt, ops_dense, ops_regroup, scene, [
+        ("1M primary", rays, False),
+        ("1M shadow, two lights", two_light_shadow_rays(rt, shadow_1m),
+         True)], read_counts, zero_counts)
 
     kernels = [
         {"name": "phase_a", "route": "cuda",
@@ -1067,6 +1091,13 @@ def main():
          "ms": k6["ms"], "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1],
          "library_ms": None},
+    ] + [
+        {"name": "refine_pairs", "route": "cuda",
+         "source": "raycore_tpu_torch/csrc/refine_pairs.cu",
+         "replaces": None, "path": k["path"], "launches": k["launches"],
+         "max_abs_err": 0.0, "ms": k["ms"], "host_ms": k["host_ms"],
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+         "bound_by": k["bound"][1], "library_ms": None} for k in k7
     ] + [{"name": p["name"], "route": "cuda",
           "source": f"raycore_tpu_torch/csrc/{p['name']}.cu",
           "replaces": p["replaces"],
@@ -1560,12 +1591,13 @@ def multiwave_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
     res = rt.closest_hit(scene, rays)
     torch.cuda.synchronize()
     launches = read_counts("blobby 1M closest_hit",
-                           ["phase_a", "regroup_sweep"])
+                           ["phase_a", "refine_pairs", "regroup_sweep"])
     want_k2 = 2 if routed > 1 else 1
-    if launches["phase_a"] != 1 or launches["regroup_sweep"] != want_k2:
+    if launches["phase_a"] != 1 or launches["refine_pairs"] != 1 \
+            or launches["regroup_sweep"] != want_k2:
         raise AssertionError(f"blobby 1M closest_hit: launches {launches}, "
-                             f"expected phase_a 1 and regroup_sweep "
-                             f"{want_k2}")
+                             f"expected phase_a 1, refine_pairs 1 and "
+                             f"regroup_sweep {want_k2}")
     if res.t.shape != (R,) or not bool(torch.isfinite(res.t).all()):
         raise AssertionError("blobby 1M: t is not finite or has the wrong "
                              "shape")
@@ -1624,8 +1656,8 @@ def multiwave_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
     zero_counts()
     ops_regroup.closest_hit_regrouped(scene, rays, tile=2048, passes=4)
     torch.cuda.synchronize()
-    launches4 = read_counts("blobby 1M passes=4", ["phase_a",
-                                                   "regroup_sweep"])
+    launches4 = read_counts("blobby 1M passes=4",
+                            ["phase_a", "refine_pairs", "regroup_sweep"])
     if launches4["regroup_sweep"] != 2:
         raise AssertionError(f"passes=4: launches {launches4}, expected 2 "
                              f"of regroup_sweep")
@@ -1767,10 +1799,11 @@ def instanced_phase(phase, rt, ops_dense, ops_regroup, dev, read_counts,
     res = rt.closest_hit(scene, rays)
     torch.cuda.synchronize()
     launches = read_counts("instanced closest_hit",
-                           ["phase_a", "regroup_sweep"])
-    if (launches["phase_a"], launches["regroup_sweep"]) != (1, 1):
+                           ["phase_a", "refine_pairs", "regroup_sweep"])
+    if (launches["phase_a"], launches["refine_pairs"],
+            launches["regroup_sweep"]) != (1, 1, 1):
         raise AssertionError(f"instanced closest_hit: launches {launches}, "
-                             f"expected K1 once and K2 once")
+                             f"expected K1, K7 and K2 once each")
     hit_frac = float(res.hit.float().mean())
     n_hit_inst = int(torch.unique(res.instance_idx).numel()) - 1
     if not 0.05 < hit_frac < 1.0 or n_hit_inst < N // 2:
@@ -2634,11 +2667,12 @@ def pathtracer_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,
         imgs[s], ms = timed_call(lambda: frame(s))
         times.append(ms)
         per_frame = read_counts(f"path-traced frame seed {s}",
-                                ["phase_a", "regroup_sweep"])
-        if (per_frame["phase_a"], per_frame["regroup_sweep"]) != (
-                n_queries, n_queries):
+                                ["phase_a", "refine_pairs",
+                                 "regroup_sweep"])
+        if (per_frame["phase_a"], per_frame["refine_pairs"],
+                per_frame["regroup_sweep"]) != (n_queries,) * 3:
             raise AssertionError(f"frame seed {s}: launches {per_frame}, "
-                                 f"expected K1 and K2 once a query "
+                                 f"expected K1, K7 and K2 once a query "
                                  f"({n_queries} queries)")
     med = statistics.median(times)
     say(phase, f"trace_paths_staged {cfg.width}x{cfg.height}, "
@@ -3551,6 +3585,95 @@ def sharding_phase(phase, rt, dev, o, d, head, diag):
                f"s. Two ranks share one card: these times say nothing about "
                f"scaling")
 
+
+
+def two_light_shadow_rays(rt, shadow):
+    """Shadow rays from the origins of ``shadow`` (the headline surface,
+    lifted) toward one of REFINE_LIGHTS each, drawn per ray, with t_max
+    the distance to the light: neighbouring rays change direction octant
+    about every other ray, so the engine sweeps them in octant order."""
+    o = shadow.o
+    rng = np.random.default_rng(SEED + 28)
+    pick = torch.as_tensor(rng.integers(0, len(REFINE_LIGHTS), o.shape[0]),
+                           device=o.device)
+    light = torch.tensor(REFINE_LIGHTS, device=o.device)[pick]
+    to = light - o
+    dist = to.norm(dim=1)
+    return rt.Ray.create(o, to / dist[:, None], t_max=dist)
+
+
+def refine_phase(phase, rt, ops_dense, ops_regroup, scene, cases,
+                 read_counts, zero_counts):
+    """K7 on each of ``cases`` ((name, rays, occlusion)): the query
+    through its entry point (K1, K7 and K2 once each, no other kernel);
+    then, on the operands the engine builds (any_hit's rays with t_min
+    forced to 0, ``_swept_batch`` at tile 2048 in subgroups of 32, the
+    order the engine sweeps), K1 bitwise against its plain version and
+    its model (``phase_a_check``), its worklist and the subgroup stats,
+    and K7 once, bitwise against ``refine_pairs_plain`` and
+    ``refine_pairs_model``. K7's time from a CUDA graph of 50 calls and
+    from calls launched from the host back to back, its plain version's,
+    and its bound: the output and each input read once at the HBM
+    bandwidth, or K7_ENTRY_FLOPS an entry at the float32 peak. Returns
+    one entry a case for the kernels line."""
+    out = []
+    for name, rays, occlusion in cases:
+        zero_counts()
+        (rt.any_hit if occlusion else rt.closest_hit)(scene, rays)
+        torch.cuda.synchronize()
+        want = ["phase_a", "refine_pairs", "regroup_sweep"]
+        counts = read_counts(f"{name} query", want)
+        if any(counts[k] != 1 for k in want):
+            raise AssertionError(f"{name} query: launches {counts}, "
+                                 f"expected {want} once each")
+        if occlusion:
+            rays = rt.Ray.create(rays.o, rays.d, t_max=rays.t_max)
+        po, pd, ptmin, ptmax, _, G, TILE, order = ops_regroup._swept_batch(
+            rays, 2048, 32)
+        _, _, ek, _, slow = phase_a_check(f"K1 {name}", ops_dense, scene,
+                                          (po, pd, ptmin, ptmax), TILE)
+        cids, tids = ops_dense.build_worklist(ek.T)
+        del ek
+        stats = ops_regroup.subgroup_stats(po, pd, ptmin, ptmax, G)
+        SPT, n_tiles = TILE // G, po.shape[0] // TILE
+        args = (stats, tids, cids, scene.cluster_min, scene.cluster_max,
+                SPT, n_tiles)
+        zero_counts()
+        got = ops_regroup.refine_pairs(*args)
+        torch.cuda.synchronize()
+        if read_counts(f"K7 {name}", ["refine_pairs"])["refine_pairs"] != 1:
+            raise AssertionError(f"K7 {name}: not launched once")
+        bits = got.view(torch.int32)
+        for ref, what in ((ops_regroup.refine_pairs_plain, "plain version"),
+                          (ops_regroup.refine_pairs_model, "model")):
+            diff = int((bits != ref(*args).view(torch.int32)).sum())
+            if diff:
+                raise AssertionError(f"K7 {name}: {diff} of {got.numel()} "
+                                     f"entries differ from the {what}")
+        P = tids.shape[0]
+        kept = int(torch.isfinite(got).sum())
+        fn = lambda: ops_regroup.refine_pairs(*args)
+        ms = graph_ms(fn, 5)
+        host_ms = cuda_ms(fn, 5, inner=20)
+        plain_ms = cuda_ms(lambda: ops_regroup.refine_pairs_plain(*args), 5)
+        b = bound(nbytes(got, stats, tids, cids, scene.cluster_min,
+                         scene.cluster_max),
+                  got.numel() * K7_ENTRY_FLOPS)
+        swept = "octant order" if order is not None else "as given"
+        say(phase, f"K7 refine_pairs, {name} ({swept}): P {P} coarse "
+                   f"pairs x SPT {SPT} = {got.numel()} entries, bitwise "
+                   f"equal to plain and to "
+                   f"refine_pairs_model; kept {kept} "
+                   f"({100.0 * kept / max(got.numel(), 1):.3f}%); K1 "
+                   f"bitwise on the same rays ({slow} pairs on its plain "
+                   f"arithmetic); kernel {ms:.4f} ms on the card "
+                   f"({host_ms:.4f} ms a call launched from the host), "
+                   f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        out.append({"path": name, "launches": counts["refine_pairs"],
+                    "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                    "bound": b})
+        del got, args, stats, tids, cids, po, pd, ptmin, ptmax
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -93,8 +93,8 @@ def interval_entry(st, bmin, bmax):
     leading dims broadcast against each other. Per axis the slab interval
     comes from the min and max of the 8 corner products; a near-parallel
     bundle (clamped inverse direction) whose origins may lie inside the
-    slab never exits it, so that axis widens to (-inf, inf). Kernel K1
-    repeats these steps in this order."""
+    slab never exits it, so that axis widens to (-inf, inf). Kernels K1
+    and K7 repeat these steps in this order."""
     shape = torch.broadcast_shapes(st.shape[:-1], bmin.shape[:-1])
     dev = st.device
     full = lambda v: torch.full(shape, v, dtype=torch.float32, device=dev)
@@ -151,24 +151,30 @@ def phase_a_model(stats, bounds):
 
 def phase_a_paths(stats, bounds):
     """(entry, fast): kernel K1's entry matrix, bit for bit, and the pairs
-    where it takes its fast arithmetic. That is, where the tile's stats
-    and the box lie in the class of
-    ``csrc/phase_a.cu:entry_fast`` (o_lo, o_hi, i_lo, i_hi finite with i
-    nonzero, t_min_lo and t_max_hi not NaN; the box's six bounds finite),
-    per axis the min and max of the 4 products of the extreme differences
-    RN(min(blo, bhi) - max(o_lo, o_hi)) and RN(max(blo, bhi) - min(o_lo,
-    o_hi)) with i_lo and i_hi, which the source proves are the 8 corner
-    products' min and max; elsewhere, and where that gives t_lo = 0 (whose
-    sign depends on which zero each min and max kept), ``phase_a_plain``'s
-    own value."""
-    st = stats[:, None, :14]
-    blo, bhi = bounds[:3].T[None], bounds[3:].T[None]
-    inf = torch.tensor(float("inf"), device=stats.device)
-    bmn, bmx = torch.minimum(blo, bhi), torch.maximum(blo, bhi)
+    where it takes its fast arithmetic (``interval_entry_paths`` on
+    ``phase_a_plain``'s operands)."""
+    return interval_entry_paths(stats[:, None, :14], bounds[:3].T[None],
+                                bounds[3:].T[None])
+
+
+def interval_entry_paths(st, bmin, bmax):
+    """(entry, fast): ``interval_entry(st, bmin, bmax)`` computed as
+    kernels K1 and K7 compute it (``csrc/entry.cuh``), bit for bit, and the
+    entries where they take their fast arithmetic. That is, where the
+    stats and the box lie in the class of ``entry_fast`` (o_lo, o_hi,
+    i_lo, i_hi finite with i nonzero, t_min_lo and t_max_hi not NaN; the
+    box's six bounds finite), per axis the min and max of the 4 products
+    of the extreme differences RN(min(blo, bhi) - max(o_lo, o_hi)) and
+    RN(max(blo, bhi) - min(o_lo, o_hi)) with i_lo and i_hi, which the
+    source proves are the 8 corner products' min and max; elsewhere, and
+    where that gives t_lo = 0 (whose sign depends on which zero each min
+    and max kept), ``interval_entry``'s own value."""
+    inf = torch.tensor(float("inf"), device=st.device)
+    bmn, bmx = torch.minimum(bmin, bmax), torch.maximum(bmin, bmax)
     o_lo, o_hi, i_lo, i_hi = (st[..., c:c + 3] for c in (0, 3, 6, 9))
     omn, omx = torch.minimum(o_lo, o_hi), torch.maximum(o_lo, o_hi)
-    t_lo = torch.full(torch.broadcast_shapes(st.shape[:-1], blo.shape[:-1]),
-                      -float("inf"), device=stats.device)
+    t_lo = torch.full(torch.broadcast_shapes(st.shape[:-1], bmin.shape[:-1]),
+                      -float("inf"), device=st.device)
     t_hi = -t_lo
     CL = INV_DIR_CLAMP
     for a in range(3):
@@ -181,18 +187,18 @@ def phase_a_paths(stats, bounds):
         hi8 = torch.maximum(torch.maximum(p[0], p[1]),
                             torch.maximum(p[2], p[3]))
         wide = ((i_hi[..., a] >= CL) | (i_lo[..., a] <= -CL)) \
-            & (o_hi[..., a] >= blo[..., a]) & (o_lo[..., a] <= bhi[..., a])
+            & (o_hi[..., a] >= bmin[..., a]) & (o_lo[..., a] <= bmax[..., a])
         t_lo = torch.maximum(t_lo, torch.where(wide, -inf, lo8))
         t_hi = torch.minimum(t_hi, torch.where(wide, inf, hi8))
     e = torch.maximum(t_lo, st[..., 12])
     x = torch.minimum(t_hi, st[..., 13])
     fast = torch.where(e <= x, e, inf)
-    oi = stats[:, :12]
-    tile_ok = torch.isfinite(oi).all(1) & (oi[:, 6:12] != 0).all(1) \
-        & ~torch.isnan(stats[:, 12]) & ~torch.isnan(stats[:, 13])
-    box_ok = torch.isfinite(bounds).all(0)
-    use = tile_ok[:, None] & box_ok[None] & (t_lo != 0)
-    return torch.where(use, fast, phase_a_plain(stats, bounds)), use
+    oi = st[..., :12]
+    stats_ok = torch.isfinite(oi).all(-1) & (oi[..., 6:12] != 0).all(-1) \
+        & ~torch.isnan(st[..., 12]) & ~torch.isnan(st[..., 13])
+    box_ok = torch.isfinite(bmin).all(-1) & torch.isfinite(bmax).all(-1)
+    use = stats_ok & box_ok & (t_lo != 0)
+    return torch.where(use, fast, interval_entry(st, bmin, bmax)), use
 
 
 def phase_a(stats, bounds):

@@ -117,6 +117,7 @@ def _stage1_inst_core(scene, o, d, t_min, t_max, TILE: int, G: int,
         spt = torch.arange(SPT, dtype=torch.int32, device=dev)
         with span("raycore.wait.refine"):
             sel = compact_indices(torch.isfinite(fine).reshape(-1))
+        refine_pairs.kept += sel.shape[0]
         qsub = (tids[:, None] * SPT + spt).reshape(-1)[sel]
         qinst = iids[:, None].expand(P, SPT).reshape(-1)[sel]
         Q = qsub.shape[0]

@@ -4,8 +4,9 @@
   1. Phase A (ops/dense.py, kernel K1) culls (ray tile, cluster) pairs.
      Compacting the transposed entry matrix lists the surviving pairs
      cluster-major.
-  2. Each pair is refined against the tile's TILE/G subgroups of G rays
-     with the same interval test on per-subgroup stats.
+  2. Kernel K7 (``refine_pairs``, ``csrc/refine_pairs.cu``) refines each
+     pair against the tile's TILE/G subgroups of G rays with the same
+     interval test on per-subgroup stats.
   3. The surviving (subgroup, cluster) pairs stay cluster-major, so blocks
      of SPB subgroups that need the same cluster pack by rank arithmetic.
   4. Kernel K2 (``run_regrouped``, ``csrc/regroup_sweep.cu``) tests every
@@ -48,15 +49,17 @@ a capacity guess. Only the compact stage 1 is ported; every payload
 ("full", "slim" and any_hit's "occlusion") takes it, at any ``passes``.
 
 Tracing: each stage runs in a profiler span (``utils/config.py:span``),
-``raycore.stage1``, ``raycore.sweep`` (nested in stage 1 for the
-multiwave's wave grid), ``raycore.combine`` and ``raycore.finalize``; the
-octant order in ``raycore.reorder`` spans: the gate's count (its
-readback in ``raycore.wait.octants``) with the sort and gathers where it
-engages, and the way back to the caller's order; each host sync in a
-``raycore.wait.<site>`` span. ``pack_presorted_cluster_major`` counts
-the grid's subgroup slots and the filled ones (``slots``, ``filled``),
-``octant_gate`` the queries it saw, those it ordered and the octant
-changes it found (``checked``, ``engaged``, ``boundaries``).
+``raycore.stage1``, ``raycore.refine`` (nested in it), ``raycore.sweep``
+(nested in stage 1 for the multiwave's wave grid), ``raycore.combine``
+and ``raycore.finalize``; the octant order in ``raycore.reorder`` spans:
+the gate's count (its readback in ``raycore.wait.octants``) with the sort
+and gathers where it engages, and the way back to the caller's order;
+each host sync in a ``raycore.wait.<site>`` span.
+``pack_presorted_cluster_major`` counts the grid's subgroup slots and the
+filled ones (``slots``, ``filled``), ``refine_pairs`` the (pair,
+subgroup) entries it refined and those its callers kept (``tested``,
+``kept``), ``octant_gate`` the queries it saw, those it ordered and the
+octant changes it found (``checked``, ``engaged``, ``boundaries``).
 """
 from __future__ import annotations
 
@@ -66,13 +69,13 @@ import torch
 
 from ..accel.dense import (FEAT, depth_layers, finalize_hits_exact,
                            prim_only_hits, ray_features)
-from ..core.triangle import safe_invdir
+from ..core.triangle import INV_DIR_CLAMP, safe_invdir
 from ..kernels import _build
 from ..utils.config import span
 from .dense import (EDGE_EPS, INT32_MAX, PLAIN_CHUNK_ELEMS, _featurized_hits,
                     _t_from_keys, build_worklist, compact_indices, flat_rays,
-                    interval_entry, kernel_order_hits, pad_rays,
-                    phase_a_entry, tile_rows)
+                    interval_entry, interval_entry_paths,
+                    kernel_order_hits, pad_rays, phase_a_entry, tile_rows)
 
 PAYLOADS = ("full", "slim", "occlusion")
 
@@ -110,15 +113,86 @@ def subgroup_stats(o, d, t_min, t_max, G: int):
                       shp(t_max).amax(1)[:, None]], dim=1)
 
 
-def refine_pairs(stats, tids, cids, cluster_min, cluster_max, SPT: int,
-                 n_tiles: int):
+def _refine_operands(stats, tids, cids, cluster_min, cluster_max, SPT: int,
+                     n_tiles: int):
+    """Each pair's SPT subgroup stats (P, SPT, 14) and its box (P, 1, 3)
+    twice, min and max, as ``interval_entry`` takes them."""
+    P = tids.shape[0]
+    st = stats.reshape(n_tiles, SPT * 14)[tids.long()].reshape(P, SPT, 14)
+    return (st, cluster_min[cids.long()][:, None],
+            cluster_max[cids.long()][:, None])
+
+
+def refine_pairs_plain(stats, tids, cids, cluster_min, cluster_max,
+                       SPT: int, n_tiles: int):
     """Interval-test each (tile, cluster) pair against the tile's SPT
     subgroups. Returns (P, SPT) conservative entry bounds, +inf where
     provably no ray of the subgroup enters the cluster."""
+    return interval_entry(*_refine_operands(stats, tids, cids, cluster_min,
+                                            cluster_max, SPT, n_tiles))
+
+
+def refine_pairs_model(stats, tids, cids, cluster_min, cluster_max,
+                       SPT: int, n_tiles: int):
+    """``refine_pairs_plain`` computed as kernel K7 computes it, bit for
+    bit (``ops/dense.py:interval_entry_paths`` on the same operands)."""
+    return interval_entry_paths(*_refine_operands(
+        stats, tids, cids, cluster_min, cluster_max, SPT, n_tiles))[0]
+
+
+def refine_pairs(stats, tids, cids, cluster_min, cluster_max, SPT: int,
+                 n_tiles: int):
+    """Kernel K7 (``csrc/refine_pairs.cu``): ``refine_pairs_plain`` on the
+    card, one thread an entry, bit for bit as ``refine_pairs_model``
+    computes it. CPU tensors take ``refine_pairs_plain``; CUDA tensors
+    launch the kernel or raise. Ids are not range-checked on the card:
+    ``tids`` must be below ``n_tiles`` and ``cids`` below the box count
+    (phase A's worklist produces them so). Runs in a ``raycore.refine``
+    span and adds P*SPT to the counter ``tested``; its callers add the
+    finite entries they keep to ``kept``."""
     P = tids.shape[0]
-    st = stats.reshape(n_tiles, SPT * 14)[tids.long()].reshape(P, SPT, 14)
-    return interval_entry(st, cluster_min[cids.long()][:, None],
-                          cluster_max[cids.long()][:, None])
+    refine_pairs.tested += P * SPT
+    with span("raycore.refine"):
+        if stats.device.type == "cpu":
+            return refine_pairs_plain(stats, tids, cids, cluster_min,
+                                      cluster_max, SPT, n_tiles)
+        dev = stats.device
+        _build.require(stats, torch.float32, "stats")
+        for name, t in (("tids", tids), ("cids", cids)):
+            _build.require(t, torch.int32, name, dev)
+        _build.require(cluster_min, torch.float32, "cluster_min", dev)
+        _build.require(cluster_max, torch.float32, "cluster_max", dev)
+        if stats.shape != (n_tiles * SPT, 14) or cids.shape != (P,) \
+                or tids.dim() != 1 or cluster_min.dim() != 2 \
+                or cluster_min.shape[1] != 3 \
+                or cluster_max.shape != cluster_min.shape:
+            raise ValueError(
+                f"refine_pairs shapes: stats {tuple(stats.shape)} for "
+                f"n_tiles={n_tiles} SPT={SPT}, tids {tuple(tids.shape)}, "
+                f"cids {tuple(cids.shape)}, cluster_min "
+                f"{tuple(cluster_min.shape)}, cluster_max "
+                f"{tuple(cluster_max.shape)}")
+        if P * SPT > INT32_MAX:
+            raise ValueError(f"refine_pairs: {P} pairs x SPT {SPT} entries "
+                             f"pass int32")
+        entry = torch.empty((P, SPT), dtype=torch.float32, device=dev)
+        if P == 0:
+            return entry
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.raycore_refine_pairs(
+                stats.data_ptr(), tids.data_ptr(), cids.data_ptr(),
+                cluster_min.data_ptr(), cluster_max.data_ptr(),
+                entry.data_ptr(), P, SPT, INV_DIR_CLAMP,
+                _build.stream_ptr(stats))
+        _build.check(err, "refine_pairs")
+        refine_pairs.launches += 1
+        return entry
+
+
+refine_pairs.launches = 0
+refine_pairs.tested = 0
+refine_pairs.kept = 0
 
 
 def pack_presorted_cluster_major(cid_s, sub_s, *, SPB: int, n_sub: int):
@@ -440,6 +514,7 @@ def subgroup_pairs(scene, o, d, t_min, t_max, TILE, G):
     fine = fine.reshape(-1)
     with span("raycore.wait.refine"):
         sel = compact_indices(torch.isfinite(fine))
+    refine_pairs.kept += sel.shape[0]
     return P, sub[sel], cid[sel], fine[sel], stats
 
 

@@ -49,13 +49,14 @@ def test_port_sources_never_import_jax():
 
 KERNELS = (ops_dense.phase_a, ops_regroup.run_regrouped,
            ops_dense.run_worklist, ops_dense.run_occlusion,
-           ops_regroup.run_packed, ops_brute.run_brute)
+           ops_regroup.run_packed, ops_brute.run_brute,
+           ops_regroup.refine_pairs)
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
-    """Every query path on CPU tensors: the regrouped engine (K1, K2), the
-    worklist closest hit (K3), the worklist occlusion (K4), the packed
-    engine (K1, K5) and the dense brute-force sweep (K6)."""
+    """Every query path on CPU tensors: the regrouped engine (K1, K7, K2),
+    the worklist closest hit (K3), the worklist occlusion (K4), the packed
+    engine (K1, K7, K5) and the dense brute-force sweep (K6)."""
     for fn in KERNELS:
         fn.launches = 0
     mesh = rt.displaced_grid_mesh(n=12, device="cpu")
@@ -129,6 +130,9 @@ def test_wrappers_raise_for_tensors_off_the_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         ops_brute.run_brute(torch.zeros((9, 512), device="meta"), ray3, ray3,
                             rows, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops_regroup.refine_pairs(torch.zeros((8, 14), device="meta"), ids,
+                                 ids, ray3, ray3, 4, 2)
 
 
 def test_missing_nvcc_is_reported(monkeypatch, tmp_path):

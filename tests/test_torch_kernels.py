@@ -19,10 +19,11 @@ from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
 from raycore_tpu_torch.tools._common import best_ms, check_equal
-from torch_adversarial import (GATHER_CASES, PHASE_A_CASES,
-                               block_probe_case, brute_case,
+from torch_adversarial import (GATHER_CASES, PHASE_A_CASES, REFINE_PAIRS,
+                               REFINE_TILES, block_probe_case, brute_case,
                                epilogue_probe_case, gather_case, morton_grid,
-                               phase_a_case, phase_a_signed_zeros)
+                               phase_a_case, phase_a_signed_zeros,
+                               refine_case, refine_operands)
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +98,81 @@ def test_phase_a_kernel_adversarial_bitwise(cuda, case):
     assert torch.equal(em.view(torch.int32), ep.view(torch.int32))
 
 
+def _refine_kernel_check(args, coherent):
+    """K7 once, bit for bit against its plain version and its model; no
+    launch on an empty worklist."""
+    before = ops_regroup.refine_pairs.launches
+    ek = ops_regroup.refine_pairs(*args)
+    assert ops_regroup.refine_pairs.launches == before + 1
+    ep = ops_regroup.refine_pairs_plain(*args)
+    em = ops_regroup.refine_pairs_model(*args)
+    assert torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+    assert torch.equal(em.view(torch.int32), ep.view(torch.int32))
+    finite = int(torch.isfinite(ek).sum())
+    assert 0 < finite <= ek.numel()
+    if coherent:
+        assert finite < ek.numel()
+    stats, tids, cids, *rest = args
+    empty = ops_regroup.refine_pairs(stats, tids[:0], cids[:0], *rest)
+    assert empty.shape == (0, rest[2])
+    assert ops_regroup.refine_pairs.launches == before + 1
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+@pytest.mark.parametrize("tile", [512, 2048])
+def test_refine_pairs_kernel_bitwise(cuda, tile, coherent):
+    """K7 on a regrouped batch at SPT 16 and 64 (G 32): incoherent rays
+    with +-0 and tiny direction components, padded to whole tiles, and a
+    Morton-ordered grid whose subgroups miss most of their tile's
+    clusters."""
+    scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
+                           cluster_size=32)
+    if coherent:
+        rays = rt.Ray.create(*(torch.as_tensor(a, device=cuda)
+                               for a in morton_grid(64)))
+    else:
+        rays = _incoherent_rays(8000, 6, cuda)
+    _refine_kernel_check(refine_operands(scene.cluster_min,
+                                         scene.cluster_max, rays, tile, 32),
+                         coherent)
+
+
+@pytest.mark.parametrize("SPT", [16, 64])
+@pytest.mark.parametrize("case", PHASE_A_CASES + ("signed_zeros",))
+def test_refine_pairs_kernel_adversarial_bitwise(cuda, case, SPT):
+    """K7 against its plain version and its model, bit for bit, on
+    tests/torch_adversarial.py's phase-A cases as subgroup stats (non-
+    finite stats columns, +-0 directions, clamped axes, padded and empty
+    boxes, t_min_lo > t_max_hi, zero corner products of both signs), at
+    pair counts that are not whole CTAs."""
+    for P in REFINE_PAIRS:
+        stats, tids, cids, cmin, cmax = (
+            torch.as_tensor(a, device=cuda) for a in refine_case(case, SPT, P))
+        args = (stats, tids, cids, cmin, cmax, SPT, REFINE_TILES)
+        before = ops_regroup.refine_pairs.launches
+        ek = ops_regroup.refine_pairs(*args)
+        assert ops_regroup.refine_pairs.launches == before + (P > 0)
+        ep = ops_regroup.refine_pairs_plain(*args)
+        em = ops_regroup.refine_pairs_model(*args)
+        assert ek.shape == (P, SPT)
+        assert torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+        assert torch.equal(em.view(torch.int32), ep.view(torch.int32))
+
+
+def test_refine_pairs_kernel_on_instanced_operands(cuda):
+    """K7 on the instanced engine's world-space refine: its (tile,
+    instance) worklist against the instance AABBs (inst_aabb_min/max), at
+    the engine's tile 256 and G 8."""
+    _, scene = _instanced_scene(cuda)
+    for rays, coherent in (
+            (_instanced_rays(2048, 5, cuda), False),
+            (rt.Ray.create(*(torch.as_tensor(a, device=cuda) for a in
+                             morton_grid(64, half=4.5, z=6.0))), True)):
+        _refine_kernel_check(refine_operands(
+            scene.inst_aabb_min, scene.inst_aabb_max, rays, 256, 8,
+            tile_major=True), coherent)
+
+
 @pytest.mark.parametrize("mesh,C,G,SPB", [("grid", 128, 32, 16),
                                           ("grid", 64, 16, 32),
                                           ("blobby", 512, 32, 16)])
@@ -135,7 +211,7 @@ def test_regroup_sweep_kernel_matches_plain(cuda, mesh, C, G, SPB):
 
 
 def test_closest_hit_on_card_matches_cpu_and_oracle(cuda):
-    """The regrouped engine (K1, K2) on the card. 1024 rays are below
+    """The regrouped engine (K1, K7, K2) on the card. 1024 rays are below
     REGROUP_MIN_RAYS, so it is called directly, as dispatch calls it for
     large batches."""
     query = lambda s, r: ops_regroup.closest_hit_regrouped(s, r, tile=2048)
@@ -145,10 +221,12 @@ def test_closest_hit_on_card_matches_cpu_and_oracle(cuda):
     scene = rt.build_dense(rt.displaced_grid_mesh(n=40, device=cuda),
                            cluster_size=128)
     rays = _incoherent_rays(1024, 3, cuda)
-    counts = (ops_dense.phase_a.launches, ops_regroup.run_regrouped.launches)
+    counts = (ops_dense.phase_a.launches, ops_regroup.run_regrouped.launches,
+              ops_regroup.refine_pairs.launches)
     got = query(scene, rays)
     assert ops_dense.phase_a.launches == counts[0] + 1
     assert ops_regroup.run_regrouped.launches == counts[1] + 1
+    assert ops_regroup.refine_pairs.launches == counts[2] + 1
     assert got.t.device.type == "cuda"
     oracle = rt.closest_hit_brute(scene.prims, rays)
     for other in (ref, oracle):
@@ -567,17 +645,19 @@ def test_regroup_sweep_pairrow_range_is_checked(cuda):
 
 
 def test_instanced_query_on_card_matches_cpu_and_traversal(cuda):
-    """closest_hit on a DenseInstancedScene launches K1 once and K2 once
-    and meets the engine contract against the same query on the CPU
+    """closest_hit on a DenseInstancedScene launches K1, K7 and K2 once
+    each and meets the engine contract against the same query on the CPU
     (the plain versions) and the traversal on the card."""
     tlas_c, scene_c = _instanced_scene("cpu")
     tlas, scene = _instanced_scene(cuda)
     ref = rt.closest_hit(scene_c, _instanced_rays(2048, 5, "cpu"))
     rays = _instanced_rays(2048, 5, cuda)
-    counts = (ops_dense.phase_a.launches, ops_regroup.run_regrouped.launches)
+    counts = (ops_dense.phase_a.launches, ops_regroup.run_regrouped.launches,
+              ops_regroup.refine_pairs.launches)
     got = rt.closest_hit(scene, rays)
     assert ops_dense.phase_a.launches == counts[0] + 1
     assert ops_regroup.run_regrouped.launches == counts[1] + 1
+    assert ops_regroup.refine_pairs.launches == counts[2] + 1
     assert got.t.device.type == "cuda"
     trav = rt.closest_hit(tlas.sync(), rays)
     trav_c = rt.closest_hit(tlas_c.sync(), _instanced_rays(2048, 5, "cpu"))
@@ -740,7 +820,7 @@ def test_brute_sweep_kernel_adversarial_bitwise(cuda, table):
 
 
 def test_packed_and_brute_queries_on_card_match_cpu(cuda):
-    """closest_hit_packed (K1, K5) and closest_hit_brute_pallas (K6) on the
+    """closest_hit_packed (K1, K7, K5) and closest_hit_brute_pallas (K6) on the
     card against the same queries on the CPU: the packed engine within
     the engine contract's rtol 2e-5 on t, the dense sweep bit for bit."""
     scene_cpu = rt.build_dense(rt.displaced_grid_mesh(n=40, device="cpu"),
@@ -749,10 +829,12 @@ def test_packed_and_brute_queries_on_card_match_cpu(cuda):
                            cluster_size=128, sub_chunks=4)
     rays_cpu = _incoherent_rays(1024, 8, "cpu")
     rays = _incoherent_rays(1024, 8, cuda)
-    counts = (ops_dense.phase_a.launches, ops_regroup.run_packed.launches)
+    counts = (ops_dense.phase_a.launches, ops_regroup.run_packed.launches,
+              ops_regroup.refine_pairs.launches)
     got = rt.closest_hit_packed(scene, rays)
-    assert (ops_dense.phase_a.launches, ops_regroup.run_packed.launches) \
-        == (counts[0] + 1, counts[1] + 1)
+    assert (ops_dense.phase_a.launches, ops_regroup.run_packed.launches,
+            ops_regroup.refine_pairs.launches) \
+        == (counts[0] + 1, counts[1] + 1, counts[2] + 1)
     ref = rt.closest_hit_packed(scene_cpu, rays_cpu)
     assert torch.equal(got.hit.cpu(), ref.hit) and bool(ref.hit.any())
     torch.testing.assert_close(got.t.cpu(), ref.t, rtol=2e-5, atol=2e-6)

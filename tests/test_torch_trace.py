@@ -2,12 +2,14 @@
 (``raycore_tpu_torch/utils/config.py:span``): with no profiler recording
 no span is entered; under ``torch.profiler`` each query runs stage 1, the
 sweep, the combine and the finalize once each, in that order, inside its
-root span, and every host-sync span lies inside its stage; the regrouped
+root span, and every host-sync span lies inside its stage; the subgroup
+refine runs in a ``raycore.refine`` span inside stage 1; the regrouped
 driver's octant gate (its readback in ``raycore.wait.octants``), with the
 sort where it engages, runs in a ``raycore.reorder`` span before stage 1,
 and the way back in one between the combine and the finalize; the block
 grid's ``slots`` and ``filled`` counters equal stage 1's block and pair
-counts."""
+counts, the refine's ``tested`` and ``kept`` its entries and the pairs it
+keeps."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,8 @@ STAGES = ["raycore.stage1", "raycore.sweep", "raycore.combine",
           "raycore.finalize"]
 PACK = t_pr.pack_presorted_cluster_major
 REORDER = "raycore.reorder"
+REFINE = "raycore.refine"
+REFINE_PAIRS = t_pr.refine_pairs
 
 
 def grid_rays(side: int, half: float, z: float):
@@ -141,7 +145,14 @@ def test_each_stage_once_in_order_and_waits_inside(dense, instanced, name):
     # The regrouped driver's octant gate (the grid's rays are in one
     # octant: no sort, no way back).
     assert len(reorder) == (1 if name.endswith("_regrouped") else 0)
-    assert len(spans) == len(stages) + len(waits) + len(reorder)
+    # The subgroup refine, in stage 1 of every query that refines (the
+    # worklist does not).
+    refine = [s for s in spans if s[0] == REFINE]
+    assert len(refine) == (0 if name == "closest_hit_dense_pallas_auto"
+                           else 1)
+    assert all(inside(r, stages[0]) for r in refine)
+    assert len(spans) == len(stages) + len(waits) + len(reorder) \
+        + len(refine)
 
 
 def test_the_wave_sweep_nests_in_stage_one(dense):
@@ -235,3 +246,28 @@ def test_grid_counters_match_the_instanced_candidates(monkeypatch,
     assert candidates > 0
     assert PACK.filled == candidates
     assert PACK.slots == blocks * 16
+
+
+def test_refine_counters_match_stage_one(monkeypatch, dense):
+    """``tested`` gains the coarse pairs times the subgroups a tile,
+    ``kept`` the subgroup pairs stage 1 keeps."""
+    scene, rays = dense
+    monkeypatch.setattr(REFINE_PAIRS, "tested", 0)
+    monkeypatch.setattr(REFINE_PAIRS, "kept", 0)
+    o, d, t_min, t_max, _, G, TILE = t_pr._padded_batch(rays, 256, 32)
+    _, _, _, (coarse, pairs, _) = t_pr._stage1_cm_core(
+        scene, o, d, t_min, t_max, TILE, G, 16)
+    assert 0 < pairs < coarse * (TILE // G)
+    assert REFINE_PAIRS.tested == coarse * (TILE // G)
+    assert REFINE_PAIRS.kept == pairs
+
+
+def test_refine_counters_match_the_instanced_pairs(monkeypatch, instanced):
+    _, scene, rays = instanced
+    monkeypatch.setattr(REFINE_PAIRS, "tested", 0)
+    monkeypatch.setattr(REFINE_PAIRS, "kept", 0)
+    _, s1 = t_inst._query(scene, rays, 256, 32, 16)
+    coarse, pairs, _, _ = s1.counts
+    assert 0 < pairs <= coarse * (256 // 32)
+    assert REFINE_PAIRS.tested == coarse * (256 // 32)
+    assert REFINE_PAIRS.kept == pairs

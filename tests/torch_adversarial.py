@@ -1,7 +1,7 @@
-"""Adversarial inputs of kernels K1 (phase A) and K6 (the dense sweep), of
-the probes P2's and P4's epilogues and of P1's gathers, and the
-Morton-ordered ray grid of the multiwave tests, made with NumPy from a
-seed.
+"""Adversarial inputs of kernels K1 (phase A), K7 (the subgroup refine)
+and K6 (the dense sweep), of the probes P2's and P4's epilogues and of
+P1's gathers, and the Morton-ordered ray grid of the multiwave tests,
+made with NumPy from a seed.
 
 This module imports no JAX: the card tests (test_torch_kernels.py) use
 the same inputs as the CPU tests. Every function returns float32 NumPy
@@ -12,6 +12,7 @@ import torch
 
 from raycore_tpu_torch.core.triangle import INV_DIR_CLAMP
 from raycore_tpu_torch.ops import dense as ops_dense
+from raycore_tpu_torch.ops import regroup as ops_regroup
 
 CL = np.float32(INV_DIR_CLAMP)
 F32 = np.float32
@@ -128,6 +129,48 @@ def phase_a_signed_zeros(seed=0):
     b[2, 1::4], b[5, 1::4] = -0.0, 0.0
     st[::3, 9:11] = CL
     return st, b
+
+
+# K7 (the subgroup refine): the tiles of subgroup stats a case draws, and
+# pair counts that are not a whole number of the kernel's CTAs, 0 among
+# them.
+REFINE_TILES = 5
+REFINE_PAIRS = (0, 1, 301)
+
+
+def refine_case(case, SPT, P, seed=0):
+    """(stats (REFINE_TILES*SPT, 14), tids (P,) int32, cids (P,) int32,
+    cluster_min (K, 3), cluster_max (K, 3)) of one phase-A case (or
+    "signed_zeros"): the case's stats rows as subgroup stats, each row
+    drawn before any is drawn again, its boxes as the clusters, and P
+    random (tile, cluster) pairs."""
+    st, b = (phase_a_signed_zeros(seed) if case == "signed_zeros"
+             else phase_a_case(case, seed))
+    rng = np.random.default_rng(seed + 1)
+    n_sub = REFINE_TILES * SPT
+    rows = np.concatenate([rng.permutation(len(st))
+                           for _ in range(-(-n_sub // len(st)))])[:n_sub]
+    tids = rng.integers(0, REFINE_TILES, P).astype(np.int32)
+    cids = rng.integers(0, b.shape[1], P).astype(np.int32)
+    return (np.ascontiguousarray(st[rows, :14]), tids, cids,
+            np.ascontiguousarray(b[:3].T), np.ascontiguousarray(b[3:].T))
+
+
+def refine_operands(bmin, bmax, rays, tile, G, tile_major=False):
+    """What stage 1 hands the refine on a padded batch of ``rays``: the
+    subgroup stats and phase A's worklist against the boxes (bmin, bmax),
+    cluster-major as the regrouped engine builds it or tile-major as the
+    instanced engine does. Returns refine_pairs' arguments."""
+    o, d, t_min, t_max, _, G, TILE = ops_regroup._padded_batch(rays, tile, G)
+    n_tiles = o.shape[0] // TILE
+    entry = ops_dense.phase_a_entry_bounds(bmin, bmax, o, d, t_min, t_max,
+                                           n_tiles, TILE)
+    if tile_major:
+        tids, cids = ops_dense.build_worklist(entry)
+    else:
+        cids, tids = ops_dense.build_worklist(entry.T)
+    stats = ops_regroup.subgroup_stats(o, d, t_min, t_max, G)
+    return stats, tids, cids, bmin, bmax, TILE // G, n_tiles
 
 
 # K6: a ray count that is not a whole number of the kernel's CTAs or
