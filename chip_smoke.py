@@ -1121,10 +1121,11 @@ def phase_a_check(what, ops_dense, scene, rows, TILE):
     operands a query builds from ``rows`` (o, d, t_min, t_max) padded to
     whole tiles of TILE rays. Returns (stats, bounds, entry, max abs error
     over the finite entries, pairs that take the plain arithmetic)."""
+    from raycore_tpu_torch.accel.dense import INVD_COLS, ray_features
     o, d, t_min, t_max = ops_dense.pad_rays(*rows, TILE)
     stats, bounds = ops_dense.phase_a_inputs(
-        scene.cluster_min, scene.cluster_max, o, d, t_min, t_max,
-        o.shape[0] // TILE, TILE)
+        o, ray_features(o, d)[:, INVD_COLS], t_min, t_max,
+        scene.cluster_min, scene.cluster_max, TILE)
     ek = ops_dense.phase_a(stats, bounds)
     ep = ops_dense.phase_a_plain(stats, bounds)
     em, fast = ops_dense.phase_a_paths(stats, bounds)
@@ -3401,7 +3402,8 @@ def classifier_phase(phase, rt, scene, o, d):
     bracketing the exact t, and every ray that ray_verdict does not call
     ambiguous naming the exact winner. Reports the share of ambiguous
     rays (the census number) in each mode."""
-    from raycore_tpu_torch.accel.dense import _first_argmin, ray_features
+    from raycore_tpu_torch.accel.dense import (INVD_COLS, _first_argmin,
+                                               ray_features)
     from raycore_tpu_torch.ops import dense as ops_dense
     from raycore_tpu_torch.ops import two_phase as tp
     TILE, C = 2048, scene.cluster_size
@@ -3410,8 +3412,9 @@ def classifier_phase(phase, rt, scene, o, d):
                                                               float("inf")),
                                               TILE)
     n_tiles = po.shape[0] // TILE
-    entry = ops_dense.phase_a_entry(scene, po, pd, ptmin, ptmax, n_tiles,
-                                    TILE)
+    entry = ops_dense.phase_a_entry(
+        po, ray_features(po, pd)[:, INVD_COLS], ptmin, ptmax,
+        scene.cluster_min, scene.cluster_max, TILE)
     tiles = np.random.default_rng(SEED + phase).choice(
         n_tiles, CLASSIFIER_TILES, replace=False)
     bf = tp._bf16
@@ -3634,7 +3637,10 @@ def refine_phase(phase, rt, ops_dense, ops_regroup, scene, cases,
                                           (po, pd, ptmin, ptmax), TILE)
         cids, tids = ops_dense.build_worklist(ek.T)
         del ek
-        stats = ops_regroup.subgroup_stats(po, pd, ptmin, ptmax, G)
+        tbl = ops_regroup.ray_table(po, pd, ptmin, ptmax, G)
+        stats = ops_dense.bundle_stats(po, ops_regroup.table_invd(tbl),
+                                       ptmin, ptmax, G)
+        del tbl
         SPT, n_tiles = TILE // G, po.shape[0] // TILE
         args = (stats, tids, cids, scene.cluster_min, scene.cluster_max,
                 SPT, n_tiles)

@@ -1,7 +1,8 @@
 """Dense clustered scene: the build, the finalizes and the rounds engine
 (counterpart of ``raycore_tpu/accel/dense.py``): ``DenseScene``,
 ``build_dense``, ``gather_hit_payload``, ``finalize_hits``,
-``finalize_hits_exact``, ``depth_layers``, ``closest_hit_dense``,
+``finalize_hits_exact`` (its arithmetic ``exact_t_bary``, which the
+instanced engine shares), ``depth_layers``, ``closest_hit_dense``,
 ``any_hit_dense`` and ``morton_sort_rays``, plus ``prim_only_hits``, the
 payload-free result of the occlusion and slim queries.
 
@@ -38,6 +39,8 @@ from .types import (PAD_COORD, f32_as_i32, flush_denormals, i32_as_f32,
                     next_pow2)
 
 FEAT = 16
+# ray_features' columns of the inverse direction, safe_invdir(d).
+INVD_COLS = slice(10, 13)
 EDGE_EPS = 1e-5   # barycentric acceptance slack of the featurized test
 # The rounds engine's product per group of tiles: at most this many
 # float32 elements (512 MiB). Tiles are independent, so the group size
@@ -180,7 +183,7 @@ def ray_features(o, d):
     phi[:, 3:6] = torch.linalg.cross(o, d)
     phi[:, 6:9] = o
     phi[:, 9] = 1.0
-    phi[:, 10:13] = safe_invdir(d)
+    phi[:, INVD_COLS] = safe_invdir(d)
     return phi
 
 
@@ -386,11 +389,20 @@ def prim_only_hits(scene: DenseScene, pair, t=None,
 
 def finalize_hits_exact(scene: DenseScene, pair, t_approx, o, d) -> HitResult:
     """HitResult from winning (pair, t): gather the winning triangle and
-    recompute (t, u, v) with scalar float32 Möller–Trumbore. Winners
-    admitted under the featurized sweep's edge slack clamp into the
-    barycentric simplex."""
+    recompute (t, u, v) with ``exact_t_bary``."""
     hit = (pair >= 0) & torch.isfinite(t_approx)
     tri, orig = gather_hit_payload(scene, pair.clamp_min(0), hit)
+    t, bary = exact_t_bary(tri, hit, t_approx, o, d)
+    return HitResult(hit=hit, triangle=tri, t=t, barycentric=bary,
+                     prim_idx=orig,
+                     instance_idx=_hit_instance_idx(scene, orig, hit))
+
+
+def exact_t_bary(tri: Triangle, hit, t_approx, o, d):
+    """(t, barycentric) of rays (o, d) against their gathered winning
+    triangles ``tri`` by scalar float32 Möller–Trumbore, t_approx where
+    det is 0, zeros off ``hit``. Winners admitted under the featurized
+    sweep's edge slack clamp into the barycentric simplex."""
     v0, v1, v2 = tri.vertices[:, 0], tri.vertices[:, 1], tri.vertices[:, 2]
     e1 = v1 - v0
     e2 = v2 - v0
@@ -408,9 +420,7 @@ def finalize_hits_exact(scene: DenseScene, pair, t_approx, o, d) -> HitResult:
     u = u.clamp(0.0, 1.0)
     v = torch.minimum(v.clamp_min(0.0), 1.0 - u)
     bary = torch.where(hit[:, None], torch.stack([1 - u - v, u, v], -1), 0.0)
-    return HitResult(hit=hit, triangle=tri, t=torch.where(hit, t, 0.0),
-                     barycentric=bary, prim_idx=orig,
-                     instance_idx=_hit_instance_idx(scene, orig, hit))
+    return torch.where(hit, t, 0.0), bary
 
 
 def finalize_hits(scene: DenseScene, pair, t, u, v) -> HitResult:
@@ -502,8 +512,10 @@ def _closest_hit_dense_flat(scene: DenseScene, o, d, t_min, t_max, *,
     S = select_per_round
     n_tiles = R // tile
     dev = o.device
-    entry = phase_a_entry(scene, o, d, t_min, t_max, n_tiles, tile)  # K1
-    phi = ray_features(o, d).reshape(n_tiles, tile, FEAT)
+    phi = ray_features(o, d)
+    entry = phase_a_entry(o, phi[:, INVD_COLS], t_min, t_max,   # K1
+                          scene.cluster_min, scene.cluster_max, tile)
+    phi = phi.reshape(n_tiles, tile, FEAT)
     tmin_t = t_min.reshape(n_tiles, tile)
     best_t = t_max.reshape(n_tiles, tile).clone()
     best_pair = torch.full((n_tiles, tile), -1, dtype=torch.int32,

@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from ..core.transforms import _apply_mat3_fused
-from ..utils.config import span
 from . import morton as _morton
 from .lbvh import MAX_DEPTH, karras_topology, refit_aabbs
 from .types import INVALID_NODE, PAD_COORD, Instances, f32_as_i32
@@ -23,12 +22,9 @@ DEGENERATE_EXTENT = 1e-6
 
 def box_corners(lo, hi):
     """(..., 8, 3) corners of boxes (..., 3): corner i takes hi on axis a
-    where bit a of i is set. The pattern's upload is a host sync on the
-    card (``raycore.wait.corners``)."""
-    with span("raycore.wait.corners"):
-        bits = torch.tensor(
-            [[(i >> a) & 1 for a in range(3)] for i in range(8)],
-            dtype=torch.bool, device=lo.device)
+    where bit a of i is set. The pattern is made on the boxes' device."""
+    ar = lambda n: torch.arange(n, device=lo.device)
+    bits = ((ar(8)[:, None] >> ar(3)) & 1).bool()
     return torch.where(bits, hi[..., None, :], lo[..., None, :])
 
 

@@ -20,7 +20,6 @@ import math
 import numpy as np
 import torch
 
-from ..utils.config import span
 from .device import as_f32, default_device
 
 
@@ -112,9 +111,8 @@ _EPS = 1e-5
 
 def safe_invdir(d):
     """1/d with |d| clamped away from zero at 1e-5, preserving sign. The
-    clamp's upload is a host sync on the card (``raycore.wait.eps``)."""
-    with span("raycore.wait.eps"):
-        eps = torch.tensor(_EPS, dtype=torch.float32, device=d.device)
+    float32 clamp is made on d's device, so no upload waits for it."""
+    eps = torch.full((), _EPS, dtype=torch.float32, device=d.device)
     clamped = torch.where(d.abs() > eps, d, torch.copysign(eps, d))
     return 1.0 / clamped
 

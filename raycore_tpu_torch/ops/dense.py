@@ -34,9 +34,9 @@ from __future__ import annotations
 import torch
 
 from ..accel.brute import HitResult
-from ..accel.dense import (EDGE_EPS, finalize_hits_exact, prim_only_hits,
-                           ray_features)
-from ..core.triangle import INV_DIR_CLAMP, fma, safe_invdir
+from ..accel.dense import (EDGE_EPS, INVD_COLS, finalize_hits_exact,
+                           prim_only_hits, ray_features)
+from ..core.triangle import INV_DIR_CLAMP, fma
 from ..kernels import _build
 from ..utils.config import span
 
@@ -96,17 +96,16 @@ def interval_entry(st, bmin, bmax):
     slab never exits it, so that axis widens to (-inf, inf). Kernels K1
     and K7 repeat these steps in this order."""
     shape = torch.broadcast_shapes(st.shape[:-1], bmin.shape[:-1])
-    dev = st.device
-    full = lambda v: torch.full(shape, v, dtype=torch.float32, device=dev)
-    with span("raycore.wait.inf"):
-        inf = torch.tensor(float("inf"), device=dev)
-    t_lo, t_hi = full(-float("inf")), full(float("inf"))
+    inf = float("inf")
+    full = lambda v: torch.full(shape, v, dtype=torch.float32,
+                                device=st.device)
+    t_lo, t_hi = full(-inf), full(inf)
     CL = INV_DIR_CLAMP
     for a in range(3):
         blo, bhi = bmin[..., a], bmax[..., a]
         o_lo, o_hi = st[..., a], st[..., 3 + a]
         i_lo, i_hi = st[..., 6 + a], st[..., 9 + a]
-        lo8, hi8 = full(float("inf")), full(-float("inf"))
+        lo8, hi8 = full(inf), full(-inf)
         for bb in (blo, bhi):
             for oc in (o_lo, o_hi):
                 diff = bb - oc
@@ -169,12 +168,12 @@ def interval_entry_paths(st, bmin, bmax):
     source proves are the 8 corner products' min and max; elsewhere, and
     where that gives t_lo = 0 (whose sign depends on which zero each min
     and max kept), ``interval_entry``'s own value."""
-    inf = torch.tensor(float("inf"), device=st.device)
+    inf = float("inf")
     bmn, bmx = torch.minimum(bmin, bmax), torch.maximum(bmin, bmax)
     o_lo, o_hi, i_lo, i_hi = (st[..., c:c + 3] for c in (0, 3, 6, 9))
     omn, omx = torch.minimum(o_lo, o_hi), torch.maximum(o_lo, o_hi)
     t_lo = torch.full(torch.broadcast_shapes(st.shape[:-1], bmin.shape[:-1]),
-                      -float("inf"), device=st.device)
+                      -inf, device=st.device)
     t_hi = -t_lo
     CL = INV_DIR_CLAMP
     for a in range(3):
@@ -230,32 +229,37 @@ def phase_a(stats, bounds):
 phase_a.launches = 0
 
 
-def phase_a_entry(scene, o, d, t_min, t_max, n_tiles, TILE):
-    """Tile stats + interval culling -> (n_tiles, K) entry bounds."""
-    return phase_a_entry_bounds(scene.cluster_min, scene.cluster_max,
-                                o, d, t_min, t_max, n_tiles, TILE)
+def bundle_stats(o, invd, t_min, t_max, n: int):
+    """(rows / n, 14) interval stats of the bundles of n consecutive rays,
+    ``interval_entry``'s operand: cols o_lo(0:3) o_hi(3:6) i_lo(6:9)
+    i_hi(9:12) tmin_lo(12) tmax_hi(13), the ranges of the origins ``o``,
+    the inverse directions ``invd`` and the t range. ``invd`` is
+    ``safe_invdir`` of directions whose -0 components are turned into +0
+    (as ``pad_rays`` turns them), such as ``ray_features``' cols
+    ``INVD_COLS``, so that a query inverts each ray set once. Phase A
+    takes them over tiles (K1), the refine over subgroups (K7 and the
+    packed sub-chunk refine), the instanced engine over the local rays of
+    its (subgroup, instance) pairs."""
+    b = lambda a: a.reshape((a.shape[0] // n, n) + tuple(a.shape[1:]))
+    o_b, i_b = b(o), b(invd)
+    return torch.cat([o_b.amin(1), o_b.amax(1), i_b.amin(1), i_b.amax(1),
+                      b(t_min).amin(1)[:, None], b(t_max).amax(1)[:, None]],
+                     dim=1)
 
 
-def phase_a_inputs(bounds_min, bounds_max, o, d, t_min, t_max, n_tiles,
-                   TILE):
-    """The kernel's operands: (n_tiles, 16) tile stats and (6, K) bounds."""
-    invd = safe_invdir(torch.where(d == 0.0, 0.0, d))
-    shp = lambda a: a.reshape((n_tiles, TILE) + tuple(a.shape[1:]))
-    o_t, invd_t = shp(o), shp(invd)
-    stats = torch.cat([
-        o_t.amin(1), o_t.amax(1), invd_t.amin(1), invd_t.amax(1),
-        shp(t_min).amin(1)[:, None], shp(t_max).amax(1)[:, None],
-        torch.zeros((n_tiles, 2), dtype=torch.float32, device=o.device)],
-        dim=1)
-    bounds = torch.cat([bounds_min.T, bounds_max.T]).contiguous()
-    return stats, bounds
+def phase_a_inputs(o, invd, t_min, t_max, bmin, bmax, TILE: int):
+    """Kernel K1's operands for the tiles of TILE padded rays against
+    (K, 3) boxes: the tiles' ``bundle_stats`` with two zero columns,
+    (n_tiles, 16), and the (6, K) bounds [bmin xyz, bmax xyz]."""
+    return (torch.nn.functional.pad(bundle_stats(o, invd, t_min, t_max,
+                                                 TILE), (0, 2)),
+            torch.cat([bmin.T, bmax.T]).contiguous())
 
 
-def phase_a_entry_bounds(bounds_min, bounds_max, o, d, t_min, t_max,
-                         n_tiles, TILE):
-    """phase_a_entry against arbitrary (K, 3) AABBs."""
-    return phase_a(*phase_a_inputs(bounds_min, bounds_max, o, d, t_min,
-                                   t_max, n_tiles, TILE))
+def phase_a_entry(o, invd, t_min, t_max, bmin, bmax, TILE: int):
+    """Phase A: the (n_tiles, K) entry bounds of the tiles of TILE padded
+    rays into (K, 3) boxes, kernel K1 on ``phase_a_inputs``."""
+    return phase_a(*phase_a_inputs(o, invd, t_min, t_max, bmin, bmax, TILE))
 
 
 def compact_indices(flat):
@@ -692,10 +696,11 @@ def _worklist_inputs(scene, o, d, t_min, t_max, TILE: int):
     """Pad to whole tiles and run phase A. Returns (entry, phi, tmin,
     key0, o, d) over the padded rows."""
     o, d, t_min, t_max = pad_rays(o, d, t_min, t_max, TILE)
-    entry = phase_a_entry(scene, o, d, t_min, t_max, o.shape[0] // TILE,
-                          TILE)
+    phi = ray_features(o, d)
+    entry = phase_a_entry(o, phi[:, INVD_COLS], t_min, t_max,
+                          scene.cluster_min, scene.cluster_max, TILE)
     bits = _idx_bits(scene.cluster_size // scene.sub_chunks)
-    return entry, ray_features(o, d), t_min, _pack_tmax(t_max, bits), o, d
+    return entry, phi, t_min, _pack_tmax(t_max, bits), o, d
 
 
 def _sweep(scene, tids, cids, phi, tmin, key0, TILE: int, pair0=None):
@@ -879,10 +884,11 @@ def _occl_phase_a(scene, o, d, t_min, t_max, *, TILE: int):
     (tids, cids, phi, tmin, tmax) over the padded rows."""
     with span("raycore.stage1"):
         o, d, t_min, t_max = pad_rays(o, d, t_min, t_max, TILE)
-        entry = phase_a_entry(scene, o, d, t_min, t_max, o.shape[0] // TILE,
-                              TILE)
+        phi = ray_features(o, d)
+        entry = phase_a_entry(o, phi[:, INVD_COLS], t_min, t_max,
+                              scene.cluster_min, scene.cluster_max, TILE)
         tids, cids = build_worklist(entry)
-        return tids, cids, ray_features(o, d), t_min, t_max
+        return tids, cids, phi, t_min, t_max
 
 
 def _occl_finalize(scene, tids, cids, phi, tmin, tmax, *, TILE: int,

@@ -3,8 +3,9 @@
 
   1. Phase A (kernel K1) culls (ray tile, instance) pairs against the
      per-instance world AABBs.
-  2. Each pair is refined to its G-ray subgroups (world space), and the
-     surviving (subgroup, instance) pairs are compacted.
+  2. Each pair is refined to its G-ray subgroups (world space, kernel
+     K7), and the surviving (subgroup, instance) pairs are compacted
+     (``ops/regroup.py:refine_worklist``, as in the dense engines).
   3. Per pair, the subgroup's rays go into the instance's local space
      (o_l = R^-1 o + t, d_l = R^-1 d, then -0 -> +0) and become one row of
      the ray-feature table. Möller–Trumbore's t does not change under the
@@ -26,7 +27,7 @@ path) are not ported (ROADMAP.md, "What is not ported").
 Tracing (``utils/config.py:span``): stage 1 runs in a ``raycore.stage1``
 span, K2 in ``raycore.sweep``, the combine and the decode in
 ``raycore.combine``, the local finalize in ``raycore.finalize``, and each
-host sync (the compactions, the block count, the small uploads) in a
+host sync (the compactions and the block count) in a
 ``raycore.wait.<site>`` span.
 
 The local rays' dots are fused multiply-add chains, as the JAX package's
@@ -41,25 +42,15 @@ import dataclasses
 import torch
 
 from ..accel.brute import HitResult
-from ..accel.dense import FEAT, gather_hit_payload, ray_features
+from ..accel.dense import exact_t_bary, gather_hit_payload
 from ..core.transforms import _apply_mat3_fused
 from ..core.triangle import safe_invdir
 from ..utils.config import span
-from .dense import (_t_from_keys, build_worklist, compact_indices,
-                    interval_entry, phase_a_entry_bounds)
-from .regroup import (COL_TMAX, COL_TMIN, _padded_batch, combine_rows_grouped,
-                      group_flat_cluster_major, refine_pairs, run_regrouped,
-                      subgroup_stats)
-
-
-def _bundle_entry_vs_bounds(olo, ohi, ilo, ihi, tlo, thi, bmin, bmax):
-    """Conservative ray-bundle vs AABB entry bound, +inf where no ray of
-    the bundle can enter: ``interval_entry`` on stats assembled from the
-    bundle's (..., 3) origin and inverse-direction ranges and (...,) t
-    range. The JAX package's loop, in the same order."""
-    st = torch.cat([olo, ohi, ilo, ihi, tlo[..., None], thi[..., None]],
-                   dim=-1)
-    return interval_entry(st, bmin, bmax)
+from .dense import (_t_from_keys, build_worklist, bundle_stats,
+                    interval_entry, phase_a_entry)
+from .regroup import (_padded_batch, combine_rows_grouped,
+                      group_flat_cluster_major, ray_table, refine_worklist,
+                      run_regrouped, table_invd)
 
 
 def _local_rays(inv, o, d):
@@ -99,44 +90,31 @@ def _stage1_inst_core(scene, o, d, t_min, t_max, TILE: int, G: int,
     """Stage 1 on padded rays (a whole number of TILE-ray tiles)."""
     with span("raycore.stage1"):
         S = scene.max_clusters_per_blas
-        SPT = TILE // G
         dev = o.device
-        n_tiles = o.shape[0] // TILE
         n_sub = o.shape[0] // G
 
-        # 1) (tile, instance) culling: kernel K1 on the instance AABBs.
-        entry = phase_a_entry_bounds(scene.inst_aabb_min, scene.inst_aabb_max,
-                                     o, d, t_min, t_max, n_tiles, TILE)
-        tids, iids = build_worklist(entry)
-        P = tids.shape[0]
+        # 1) (tile, instance) culling (K1) on the instance AABBs, and 2)
+        # the subgroup refine (K7) in world space, tile-major.
+        invd = safe_invdir(d)
+        bmin, bmax = scene.inst_aabb_min, scene.inst_aabb_max
+        tids, iids = build_worklist(
+            phase_a_entry(o, invd, t_min, t_max, bmin, bmax, TILE))
+        qsub, qinst, _ = refine_worklist(
+            bundle_stats(o, invd, t_min, t_max, G), tids, iids, bmin, bmax,
+            TILE // G, o.shape[0] // TILE)
+        P, Q = tids.shape[0], qsub.shape[0]
 
-        # 2) Subgroup refinement in world space.
-        stats = subgroup_stats(o, d, t_min, t_max, G)
-        fine = refine_pairs(stats, tids, iids, scene.inst_aabb_min,
-                            scene.inst_aabb_max, SPT, n_tiles)     # (P, SPT)
-        spt = torch.arange(SPT, dtype=torch.int32, device=dev)
-        with span("raycore.wait.refine"):
-            sel = compact_indices(torch.isfinite(fine).reshape(-1))
-        refine_pairs.kept += sel.shape[0]
-        qsub = (tids[:, None] * SPT + spt).reshape(-1)[sel]
-        qinst = iids[:, None].expand(P, SPT).reshape(-1)[sel]
-        Q = qsub.shape[0]
-
-        # 3) Local-space rays and their feature table, one row of G a pair.
+        # 3) Local-space rays (-0 directions turned into +0) and their
+        # table, one subgroup of G a pair.
         qs, qi = qsub.long(), qinst.long()
         inv = scene.inst_inv[qi][:, None]                        # (Q, 1, 3, 4)
         o_l, d_l = _local_rays(inv, o.reshape(n_sub, G, 3)[qs],
                                d.reshape(n_sub, G, 3)[qs])
-        d_l = torch.where(d_l == 0.0, 0.0, d_l)                 # -0 -> +0
-        tmin_g = t_min.reshape(n_sub, G)[qs]
-        tmax_g = t_max.reshape(n_sub, G)[qs]
-        phi = ray_features(o_l.reshape(-1, 3), d_l.reshape(-1, 3)) \
-            .reshape(Q, G, FEAT)
-        phi[:, :, COL_TMIN] = tmin_g
-        phi[:, :, COL_TMAX] = tmax_g
-        dummy = torch.zeros((1, G, FEAT), dtype=torch.float32, device=dev)
-        dummy[:, :, COL_TMAX] = -float("inf")
-        tbl = torch.cat([phi, dummy])
+        o_l = o_l.reshape(-1, 3)
+        d_l = torch.where(d_l == 0.0, 0.0, d_l).reshape(-1, 3)
+        tmin_l = t_min.reshape(n_sub, G)[qs].reshape(-1)
+        tmax_l = t_max.reshape(n_sub, G)[qs].reshape(-1)
+        tbl = ray_table(o_l, d_l, tmin_l, tmax_l, G)
 
         # 4) Cluster expansion in local space: S slots a pair, one per
         # cluster of its BLAS.
@@ -145,13 +123,10 @@ def _stage1_inst_core(scene, o, d, t_min, t_max, TILE: int, G: int,
         crow = scene.inst_cbase[qi][:, None] \
             + torch.minimum(slots, ncl[:, None] - 1)
         cvalid = slots < ncl[:, None]                             # (Q, S)
-        invd_l = safe_invdir(d_l)
         cr = crow.long()
-        e2 = _bundle_entry_vs_bounds(
-            o_l.amin(1)[:, None], o_l.amax(1)[:, None],
-            invd_l.amin(1)[:, None], invd_l.amax(1)[:, None],
-            tmin_g.amin(1)[:, None], tmax_g.amax(1)[:, None],
-            scene.cluster_min[cr], scene.cluster_max[cr])        # (Q, S)
+        st = bundle_stats(o_l, table_invd(tbl), tmin_l, tmax_l, G)
+        e2 = interval_entry(st[:, None], scene.cluster_min[cr],
+                            scene.cluster_max[cr])               # (Q, S)
         tvalid = (cvalid & torch.isfinite(e2)).reshape(-1)
         pair_ids = torch.arange(Q, dtype=torch.int32, device=dev)[:, None] \
             .expand(Q, S).reshape(-1)
@@ -171,10 +146,8 @@ def decode_pairrow(pair, block_cid, block_subs, qinst, C: int, SPB: int):
     pair_row = safe // C
 
     # A trailing sentinel keeps the lookups in range on an empty grid.
-    def ext(a, v):
-        with span("raycore.wait.sentinel"):
-            tail = torch.tensor([v], dtype=torch.int64, device=a.device)
-        return torch.cat([a.reshape(-1).long(), tail])
+    ext = lambda a, v: torch.nn.functional.pad(a.reshape(-1).long(), (0, 1),
+                                               value=v)
 
     cid = ext(block_cid, 0)[(pair_row // SPB).clamp(max=block_cid.numel())]
     row_pair = ext(block_subs, 0)[pair_row.clamp(max=block_subs.numel())]
@@ -197,47 +170,24 @@ def _stage2_inst_core(scene, s1: InstancedStage1, o, d, G: int, SPB: int,
     with span("raycore.combine"):
         # The combine groups rows by ray subgroup: each block row's pair
         # maps to its subgroup, the dummy pair to the dummy subgroup n_sub.
-        with span("raycore.wait.dummy"):
-            dummy = torch.tensor([n_sub], dtype=torch.int32, device=o.device)
-        subs_m = torch.cat([s1.qsub, dummy])[s1.block_subs.long()]
+        subs_m = torch.nn.functional.pad(s1.qsub, (0, 1), value=n_sub)[
+            s1.block_subs.long()]
         out_key, out_pair = combine_rows_grouped(key, pair, subs_m, G, SPB,
                                                  n_sub)
         prim, inst = decode_pairrow(out_pair[:R], s1.block_cid,
                                     s1.block_subs, s1.qinst, C, SPB)
     with span("raycore.finalize"):
-        inv = scene.inst_inv[inst.clamp_min(0)]
-        o_l, d_l = _local_rays(inv, o, d)
-        return _finalize_local(scene, prim, inst,
-                               _t_from_keys(out_key[:R], 0), o_l, d_l)
-
-
-def _finalize_local(scene, prim, inst, t_approx, o_l, d_l) -> HitResult:
-    """Exact scalar Möller–Trumbore of each winner in its instance's local
-    space (t, u and v do not change under the transform); barycentrics
-    clamp into the simplex."""
-    hit = (prim >= 0) & torch.isfinite(t_approx)
-    tri, orig = gather_hit_payload(scene, prim.clamp_min(0), hit)
-    v0, v1, v2 = tri.vertices[:, 0], tri.vertices[:, 1], tri.vertices[:, 2]
-    e1 = v1 - v0
-    e2 = v2 - v0
-    cross = torch.linalg.cross
-    dot = lambda a, b: (a * b).sum(-1)
-    s1 = cross(d_l, e2)
-    det = dot(s1, e1)
-    nz = det != 0.0
-    r = torch.where(nz, 1.0 / torch.where(nz, det, 1.0), 0.0)
-    dvec = o_l - v0
-    u = dot(dvec, s1) * r
-    s2 = cross(dvec, e1)
-    v = dot(d_l, s2) * r
-    t = torch.where(nz, dot(e2, s2) * r, t_approx)
-    u = u.clamp(0.0, 1.0)
-    v = torch.minimum(v.clamp_min(0.0), 1.0 - u)
-    bary = torch.where(hit[:, None], torch.stack([1 - u - v, u, v], -1), 0.0)
-    return HitResult(hit=hit, triangle=tri, t=torch.where(hit, t, 0.0),
-                     barycentric=bary, prim_idx=orig.to(torch.int32),
-                     instance_idx=torch.where(hit, inst, -1)
-                     .to(torch.int32))
+        # The exact test in the winner's instance's local space: t, u and
+        # v do not change under the transform.
+        t_approx = _t_from_keys(out_key[:R], 0)
+        hit = (prim >= 0) & torch.isfinite(t_approx)
+        tri, orig = gather_hit_payload(scene, prim.clamp_min(0), hit)
+        o_l, d_l = _local_rays(scene.inst_inv[inst.clamp_min(0)], o, d)
+        t, bary = exact_t_bary(tri, hit, t_approx, o_l, d_l)
+        return HitResult(hit=hit, triangle=tri, t=t, barycentric=bary,
+                         prim_idx=orig.to(torch.int32),
+                         instance_idx=torch.where(hit, inst, -1)
+                         .to(torch.int32))
 
 
 def _query(scene, rays, tile: int, subgroup: int, spb: int):

@@ -67,15 +67,16 @@ import dataclasses
 
 import torch
 
-from ..accel.dense import (FEAT, depth_layers, finalize_hits_exact,
-                           prim_only_hits, ray_features)
-from ..core.triangle import INV_DIR_CLAMP, safe_invdir
+from ..accel.dense import (FEAT, INVD_COLS, depth_layers,
+                           finalize_hits_exact, prim_only_hits, ray_features)
+from ..core.triangle import INV_DIR_CLAMP
 from ..kernels import _build
 from ..utils.config import span
 from .dense import (EDGE_EPS, INT32_MAX, PLAIN_CHUNK_ELEMS, _featurized_hits,
-                    _t_from_keys, build_worklist, compact_indices, flat_rays,
-                    interval_entry, interval_entry_paths,
-                    kernel_order_hits, pad_rays, phase_a_entry, tile_rows)
+                    _t_from_keys, build_worklist, bundle_stats,
+                    compact_indices, flat_rays, interval_entry,
+                    interval_entry_paths, kernel_order_hits, pad_rays,
+                    phase_a_entry)
 
 PAYLOADS = ("full", "slim", "occlusion")
 
@@ -101,16 +102,11 @@ def ray_table(o, d, t_min, t_max, G: int):
     return torch.cat([phi.reshape(R // G, G, FEAT), dummy])
 
 
-def subgroup_stats(o, d, t_min, t_max, G: int):
-    """(n_sub, 14) interval stats per G-ray subgroup: cols
-    [o_lo(3) o_hi(3) i_lo(3) i_hi(3) tmin_lo tmax_hi]."""
-    n_sub = o.shape[0] // G
-    invd = safe_invdir(torch.where(d == 0.0, 0.0, d))
-    shp = lambda a: a.reshape((n_sub, G) + tuple(a.shape[1:]))
-    o_t, i_t = shp(o), shp(invd)
-    return torch.cat([o_t.amin(1), o_t.amax(1), i_t.amin(1), i_t.amax(1),
-                      shp(t_min).amin(1)[:, None],
-                      shp(t_max).amax(1)[:, None]], dim=1)
+def table_invd(tbl):
+    """The inverse directions of a ray table's rays, one row a ray (the
+    dummy subgroup left out): ``bundle_stats``' operand, read from the
+    table so that a query inverts its rays once."""
+    return tbl[:-1].reshape(-1, FEAT)[:, INVD_COLS]
 
 
 def _refine_operands(stats, tids, cids, cluster_min, cluster_max, SPT: int,
@@ -491,31 +487,43 @@ def combine_rows_grouped(keys, pairs, block_subs, G: int, SPB: int,
     return kk[:n_sub].reshape(-1), pp[:n_sub].reshape(-1)
 
 
-def subgroup_pairs(scene, o, d, t_min, t_max, TILE, G):
-    """Phase A, compaction of the transposed entry matrix (so the coarse
-    worklist comes out cluster-major), then the subgroup refine and a
-    second order-preserving compaction. Returns (P, sub, cid, entry,
-    stats): the coarse pair count; the subgroup ids, cluster ids and
-    refined entry bounds (all finite) of the surviving (subgroup,
-    cluster) pairs, cluster-major; the (n_sub, 14) subgroup stats."""
-    SPT = TILE // G
-    n_tiles = o.shape[0] // TILE
-    entry = phase_a_entry(scene, o, d, t_min, t_max, n_tiles, TILE)
-    # build_worklist on entry.T: rows are cluster ids, cols tile ids, and
-    # the compaction order is cluster-major.
-    cluster_ids, tile_ids = build_worklist(entry.T)
-    stats = subgroup_stats(o, d, t_min, t_max, G)
-    fine = refine_pairs(stats, tile_ids, cluster_ids, scene.cluster_min,
-                        scene.cluster_max, SPT, n_tiles)       # (P, SPT)
-    P = tile_ids.shape[0]
-    spt = torch.arange(SPT, dtype=torch.int32, device=o.device)
-    sub = (tile_ids[:, None] * SPT + spt[None, :]).reshape(-1)
-    cid = cluster_ids[:, None].expand(P, SPT).reshape(-1)
-    fine = fine.reshape(-1)
+def refine_worklist(stats, tids, cids, bmin, bmax, SPT: int, n_tiles: int):
+    """The subgroup refine (K7) of a coarse worklist of (tile, box) pairs
+    and an order-preserving compaction of its finite entries. Returns
+    (sub, box, entry): the subgroup ids, box ids and refined entry bounds
+    (all finite) of the kept (subgroup, box) pairs, in the worklist's
+    order and each pair's subgroups in order. Adds their count to
+    ``refine_pairs.kept``. The caller orders the worklist: cluster-major
+    for the dense engines' rank pack, tile-major for the instanced
+    engine, whose pair ids (positions in this list) decide exactly tied
+    winners (``group_flat_cluster_major``)."""
+    fine = refine_pairs(stats, tids, cids, bmin, bmax, SPT,
+                        n_tiles).reshape(-1)
     with span("raycore.wait.refine"):
         sel = compact_indices(torch.isfinite(fine))
     refine_pairs.kept += sel.shape[0]
-    return P, sub[sel], cid[sel], fine[sel], stats
+    spt = torch.arange(SPT, dtype=torch.int32, device=tids.device)
+    sub = (tids[:, None] * SPT + spt).reshape(-1)
+    box = cids[:, None].expand(-1, SPT).reshape(-1)
+    return sub[sel], box[sel], fine[sel]
+
+
+def subgroup_pairs(scene, o, invd, t_min, t_max, TILE, G):
+    """The dense engines' stage-1 front end on padded rays and their
+    inverse directions (``bundle_stats``): phase A on the scene's
+    clusters, the compaction of the transposed entry matrix (so the
+    coarse worklist comes out cluster-major), then ``refine_worklist``.
+    Returns (P, sub, cid, entry, stats): the coarse pair count; the kept
+    (subgroup, cluster) pairs, cluster-major; the (n_sub, 14) subgroup
+    stats."""
+    entry = phase_a_entry(o, invd, t_min, t_max, scene.cluster_min,
+                          scene.cluster_max, TILE)
+    cids, tids = build_worklist(entry.T)
+    stats = bundle_stats(o, invd, t_min, t_max, G)
+    return (tids.shape[0],
+            *refine_worklist(stats, tids, cids, scene.cluster_min,
+                             scene.cluster_max, TILE // G, o.shape[0] // TILE),
+            stats)
 
 
 def wave_select(entry, sub, cid, waves: int, n_sub: int, K: int):
@@ -559,7 +567,8 @@ class WaveSweep:
 
 
 def _stage1_cm_core(scene, o, d, t_min, t_max, TILE, G, SPB, waves=0):
-    """Sort-free stage 1: ``subgroup_pairs``, then the rank pack.
+    """Sort-free stage 1: the ray table, ``subgroup_pairs`` on the
+    scene's clusters (cluster-major), then the rank pack.
     Returns (block_cid, block_subs, tbl, counts) with counts (coarse
     pairs, subgroup pairs, blocks).
 
@@ -576,9 +585,9 @@ def _stage1_cm_core(scene, o, d, t_min, t_max, TILE, G, SPB, waves=0):
     ``wave`` a ``WaveSweep``."""
     with span("raycore.stage1"):
         n_sub = o.shape[0] // G
-        P, sub, cid, entry, _ = subgroup_pairs(scene, o, d, t_min, t_max,
-                                               TILE, G)
         tbl = ray_table(o, d, t_min, t_max, G)
+        P, sub, cid, entry, _ = subgroup_pairs(
+            scene, o, table_invd(tbl), t_min, t_max, TILE, G)
         if waves == 0:
             block_cid, block_subs = pack_presorted_cluster_major(
                 cid, sub, SPB=SPB, n_sub=n_sub)
@@ -851,8 +860,9 @@ def _stage1_packed_core(scene, o, d, t_min, t_max, TILE, G, SPB_sub):
         SUBC = scene.sub_chunks
         n_sub = o.shape[0] // G
         dev = o.device
+        tbl = ray_table(o, d, t_min, t_max, G)
         P, qsub, qcid, _, stats = subgroup_pairs(
-            scene, o, d, t_min, t_max, TILE, G)                   # (Q,)
+            scene, o, table_invd(tbl), t_min, t_max, TILE, G)     # (Q,)
         Q = qsub.shape[0]
 
         sbmin, sbmax = subchunk_bounds(scene)
@@ -869,7 +879,6 @@ def _stage1_packed_core(scene, o, d, t_min, t_max, TILE, G, SPB_sub):
         order = torch.sort(q, stable=True).indices
         block_cid, block_subs = pack_presorted_cluster_major(
             q[order], s[order], SPB=SPB_sub, n_sub=n_sub)
-        tbl = ray_table(o, d, t_min, t_max, G)
         counts = (P, Q, keep.shape[0], block_cid.shape[0])
         return block_cid, block_subs, tbl, counts
 

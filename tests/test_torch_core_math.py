@@ -603,8 +603,21 @@ def test_mt_zero_triangle_sentinel_misses():
 
 
 def test_safe_invdir():
-    for x in ([0.0, -0.0, 2.0], [1e-6, -1e-6, -3.0]):
-        same(rc.safe_invdir(jnp.array(x)), TTri.safe_invdir(T(x)))
+    """Bit for bit with JAX at the clamp: +-float32(1e-5) and both
+    neighbours of each, +-0, subnormals of both signs."""
+    eps = np.float32(1e-5)
+    near = [np.nextafter(eps, np.float32(0)), eps,
+            np.nextafter(eps, np.float32(1))]
+    edge = np.array(near + [-x for x in near]
+                    + [np.float32(1e-40), np.float32(-1e-40),
+                       np.float32(2.0 ** -149), np.float32(-(2.0 ** -149))],
+                    np.float32)
+    assert (np.abs(edge[-4:]) < np.finfo(np.float32).tiny).all()
+    for x in ([0.0, -0.0, 2.0], [1e-6, -1e-6, -3.0], edge):
+        x = np.asarray(x, np.float32)
+        j = np.asarray(rc.safe_invdir(jnp.asarray(x)))
+        t = np_(TTri.safe_invdir(torch.as_tensor(x)))
+        assert np.array_equal(j.view(np.int32), t.view(np.int32)), (x, j, t)
     inv = np_(TTri.safe_invdir(T([0.0, -0.0, 2.0])))
     assert inv[0] == pytest.approx(1e5) and inv[1] == pytest.approx(-1e5)
     assert inv[2] == pytest.approx(0.5)

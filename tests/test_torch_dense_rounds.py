@@ -26,6 +26,7 @@ from raycore_tpu.scene import mesh as j_mesh
 from raycore_tpu_torch.accel import dense as t_dense
 from raycore_tpu_torch.ops import dense as t_ops
 from raycore_tpu_torch.scene import mesh as t_mesh
+from torch_adversarial import stage1_rows
 from torch_parity import (CPU, check_hits, jax_rays, np_, ray_arrays,
                           torch_rays)
 
@@ -230,12 +231,11 @@ def test_phase_a_entry_parallel_ray_matches_jax(outside):
     jscene = SimpleNamespace(cluster_min=jnp.asarray(_BMIN)[None],
                              cluster_max=jnp.asarray(_BMAX)[None],
                              n_clusters=1)
-    tscene = SimpleNamespace(cluster_min=torch.as_tensor(_BMIN)[None],
-                             cluster_max=torch.as_tensor(_BMAX)[None])
     ref = _jax_tile_entry(jscene, *(jnp.asarray(a) for a in
                                     (o, d, t_min, t_max)), 1, 8)
-    got = t_ops.phase_a_entry(tscene, *(torch.as_tensor(a) for a in
-                                        (o, d, t_min, t_max)), 1, 8)
+    got = t_ops.phase_a_entry(
+        *stage1_rows(*(torch.as_tensor(a) for a in (o, d, t_min, t_max))),
+        torch.as_tensor(_BMIN)[None], torch.as_tensor(_BMAX)[None], 8)
     np.testing.assert_array_equal(np_(got), np.asarray(ref))
     if outside:
         assert not np.isfinite(np_(got)[0, 0])
@@ -255,8 +255,9 @@ def test_phase_a_entry_matches_jax_tile_entry(heightfield, coherent,
     n = len(o) // tile
     ref = _jax_tile_entry(js, *(jnp.asarray(a) for a in (o, d, t_min,
                                                          t_max)), n, tile)
-    got = t_ops.phase_a_entry(ts, *(torch.as_tensor(a) for a in
-                                    (o, d, t_min, t_max)), n, tile)
+    got = t_ops.phase_a_entry(
+        *stage1_rows(*(torch.as_tensor(a) for a in (o, d, t_min, t_max))),
+        ts.cluster_min, ts.cluster_max, tile)
     np.testing.assert_array_equal(np_(got), np.asarray(ref))
     assert np.isfinite(np_(got)).any()
 
@@ -316,9 +317,11 @@ def test_exhausted_row_repicks_cluster_zero():
     o = np.float32([2e-6, 0.0, -1.0]) - d * np.float32(1.0 / d[2])
     o, d = np.tile(o, (8, 1)), np.tile(d, (8, 1))
     ref, got = _both(js, ts, o, d, tile=8, select_per_round=4)
-    entry = t_ops.phase_a_entry(ts, *t_ops.pad_rays(
-        torch.as_tensor(o), torch.as_tensor(d), torch.zeros(8),
-        torch.full((8,), float("inf")), 8), 1, 8)
+    entry = t_ops.phase_a_entry(
+        *stage1_rows(*t_ops.pad_rays(torch.as_tensor(o), torch.as_tensor(d),
+                                     torch.zeros(8),
+                                     torch.full((8,), float("inf")), 8)),
+        ts.cluster_min, ts.cluster_max, 8)
     assert not np.isfinite(np_(entry)[0, 0]) and np.isfinite(np_(entry)[0, 1])
     assert np_(got.hit).all() and (np_(got.prim_idx) < 8).all()
     assert np.array_equal(np_(got.prim_idx), np.asarray(ref.prim_idx))

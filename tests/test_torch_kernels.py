@@ -23,7 +23,7 @@ from torch_adversarial import (GATHER_CASES, PHASE_A_CASES, REFINE_PAIRS,
                                REFINE_TILES, block_probe_case, brute_case,
                                epilogue_probe_case, gather_case, morton_grid,
                                phase_a_case, phase_a_signed_zeros,
-                               refine_case, refine_operands)
+                               refine_case, refine_operands, stage1_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -69,8 +69,8 @@ def test_phase_a_kernel_bitwise(cuda, tile):
     po, pd, ptmin, ptmax, _, _, TILE = ops_regroup._padded_batch(
         rays, tile, 32)
     stats, bounds = ops_dense.phase_a_inputs(
-        scene.cluster_min, scene.cluster_max, po, pd, ptmin, ptmax,
-        po.shape[0] // TILE, TILE)
+        *stage1_rows(po, pd, ptmin, ptmax), scene.cluster_min,
+        scene.cluster_max, TILE)
     # A ragged cluster count with far-away padding bounds.
     bounds = torch.cat([bounds, torch.full((6, 37), 1e30, device=cuda)], 1)
     before = ops_dense.phase_a.launches

@@ -34,7 +34,7 @@ from raycore_tpu_torch.accel import dense as t_dense
 from raycore_tpu_torch.ops import regroup as t_pr
 from raycore_tpu_torch.scene import mesh as t_mesh
 from test_torch_regroup import _sweep_close
-from torch_adversarial import morton_grid
+from torch_adversarial import morton_grid, stage1_rows
 from torch_parity import (CPU, check_hits, jax_rays, np_, spy, torch_rays)
 
 INT32_MAX = 0x7FFFFFFF
@@ -150,8 +150,8 @@ def test_wave_internals_match_jax(blobby64, W, rays):
         js, *(jnp.asarray(np_(x)) for x in (po, pd, ptmin, ptmax)),
         TILE=TILE, G=G, SPB=SPB, P_cap=P_cap, Q_cap=P_cap * SPT,
         interpret=True, waves=W))
-    P, sub, cid, entry, _ = t_pr.subgroup_pairs(ts, po, pd, ptmin, ptmax,
-                                                TILE, G)
+    P, sub, cid, entry, _ = t_pr.subgroup_pairs(
+        ts, *stage1_rows(po, pd, ptmin, ptmax), TILE, G)
     bc, bs, _, counts, wave = t_pr._stage1_cm_core(
         ts, po, pd, ptmin, ptmax, TILE, G, SPB, waves=W)
 

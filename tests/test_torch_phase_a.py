@@ -21,7 +21,7 @@ from raycore_tpu_torch.ops import dense as t_pd
 from raycore_tpu_torch.ops import regroup as t_pr
 from raycore_tpu_torch.scene import mesh as t_mesh
 from torch_adversarial import (PHASE_A_CASES, phase_a_case,
-                               phase_a_signed_zeros)
+                               phase_a_signed_zeros, stage1_rows)
 from torch_parity import (CPU, assert_ray_features_close, bits, np_,
                           ray_arrays)
 
@@ -58,12 +58,18 @@ def _both(*arrays):
     (True, False, 256), (False, True, 128), (False, True, 1024),
     (False, False, 512)])
 def test_phase_a_plain_matches_jax_bitwise(coherent, zero_dirs, TILE):
+    """The tile stats (``bundle_stats`` at n = TILE, the JAX package's
+    ``subgroup_stats`` at a group of TILE rays) and the entry matrix, bit
+    for bit."""
     js, ts = _scenes()
     arrays = _prepared(1024, 1, coherent, zero_dirs)
     ja, ta = _both(*arrays)
     n_tiles = len(arrays[0]) // TILE
+    rows = stage1_rows(*ta)
+    assert np.array_equal(bits(j_pr.subgroup_stats(*ja, TILE)),
+                          bits(t_pd.bundle_stats(*rows, TILE)))
     ref = j_pd.phase_a_entry(js, *ja, n_tiles, TILE, True)
-    got = t_pd.phase_a_entry(ts, *ta, n_tiles, TILE)
+    got = t_pd.phase_a_entry(*rows, ts.cluster_min, ts.cluster_max, TILE)
     assert np.array_equal(bits(ref), bits(got))
     fin = np.isfinite(np_(got))
     assert 0 < fin.sum() < fin.size
@@ -79,7 +85,7 @@ def test_phase_a_against_ragged_boxes_matches_jax():
     arrays = _prepared(1024, 2, False, True)
     ja, ta = _both(lo, hi, *arrays)
     ref = j_pd.phase_a_entry_bounds(*ja, 8, 128, True)
-    got = t_pd.phase_a_entry_bounds(*ta, 8, 128)
+    got = t_pd.phase_a_entry(*stage1_rows(*ta[2:]), *ta[:2], 128)
     assert got.shape == (8, K)
     assert np.array_equal(bits(ref), bits(got))
 
@@ -126,8 +132,8 @@ def test_phase_a_model_on_query_stats(coherent, zero_dirs, TILE):
     arrays = _prepared(1024, 1, coherent, zero_dirs)
     ta = [torch.as_tensor(a) for a in arrays]
     ta = t_pd.pad_rays(*ta, TILE)
-    stats, bounds = t_pd.phase_a_inputs(ts.cluster_min, ts.cluster_max, *ta,
-                                        len(arrays[0]) // TILE, TILE)
+    stats, bounds = t_pd.phase_a_inputs(*stage1_rows(*ta), ts.cluster_min,
+                                        ts.cluster_max, TILE)
     assert np.array_equal(bits(t_pd.phase_a_model(stats, bounds)),
                           bits(t_pd.phase_a_plain(stats, bounds)))
 
@@ -148,14 +154,23 @@ def test_worklist_compaction_matches_jax():
                           np_(t_pd.compact_indices(torch.as_tensor(flat))))
 
 
-def test_subgroup_stats_and_refine_match_jax():
+@pytest.mark.parametrize("coherent,zero_dirs", [
+    (False, True), (True, False), (False, False)])
+def test_subgroup_stats_and_refine_match_jax(coherent, zero_dirs):
+    """``bundle_stats`` at the subgroup and the tile sizes, on inverse
+    directions read from the ray features as the query engines read them,
+    against the JAX package's ``subgroup_stats``, and the refine on the
+    subgroup stats, bit for bit."""
     js, ts = _scenes(C=64)
-    o, d, t_min, t_max = _prepared(1024, 4, False, True)
+    o, d, t_min, t_max = _prepared(1024, 4, coherent, zero_dirs)
     G, TILE = 32, 256
     ja, ta = _both(o, d, t_min, t_max)
+    rows = stage1_rows(*ta)
+    for n in (8, G, TILE):
+        assert np.array_equal(bits(j_pr.subgroup_stats(*ja, n)),
+                              bits(t_pd.bundle_stats(*rows, n)))
     sj = j_pr.subgroup_stats(*ja, G)
-    st = t_pr.subgroup_stats(*ta, G)
-    assert np.array_equal(bits(sj), bits(st))
+    st = t_pd.bundle_stats(*rows, G)
     rng = np.random.default_rng(5)
     tids = rng.integers(0, 1024 // TILE, 300).astype(np.int32)
     cids = rng.integers(0, js.n_clusters, 300).astype(np.int32)

@@ -16,7 +16,8 @@ from raycore_tpu_torch.ops import dense as ops_dense
 from raycore_tpu_torch.ops import instanced as ops_inst
 from raycore_tpu_torch.ops import regroup as ops_regroup
 from torch_adversarial import (PHASE_A_CASES, REFINE_PAIRS, REFINE_TILES,
-                               morton_grid, refine_case, refine_operands)
+                               morton_grid, refine_case, refine_operands,
+                               stage1_rows)
 
 def _bits(t):
     return t.contiguous().view(torch.int32)
@@ -115,8 +116,8 @@ def test_refine_pairs_on_cpu_is_the_plain_version():
                                                               32)
     tested = ops_regroup.refine_pairs.tested
     kept = ops_regroup.refine_pairs.kept
-    P, sub, _, entry, _ = ops_regroup.subgroup_pairs(scene, o, d, t_min,
-                                                     t_max, TILE, G)
+    P, sub, _, entry, _ = ops_regroup.subgroup_pairs(
+        scene, *stage1_rows(o, d, t_min, t_max), TILE, G)
     assert ops_regroup.refine_pairs.tested == tested + P * (TILE // G)
     assert ops_regroup.refine_pairs.kept == kept + sub.shape[0]
     assert bool(torch.isfinite(entry).all())
@@ -143,4 +144,4 @@ def test_refine_pairs_model_on_instanced_operands():
     assert torch.equal(_bits(ops_regroup.refine_pairs_model(*args)),
                        _bits(plain))
     assert 0 < int(torch.isfinite(plain).sum()) < plain.numel()
-    assert ops_inst.refine_pairs is ops_regroup.refine_pairs
+    assert ops_inst.refine_worklist is ops_regroup.refine_worklist

@@ -9,7 +9,8 @@ sort where it engages, runs in a ``raycore.reorder`` span before stage 1,
 and the way back in one between the combine and the finalize; the block
 grid's ``slots`` and ``filled`` counters equal stage 1's block and pair
 counts, the refine's ``tested`` and ``kept`` its entries and the pairs it
-keeps."""
+keeps; each query's and the refresh's waits are the syncs that read data
+or upload the transforms, none the upload of a constant."""
 import numpy as np
 import pytest
 import torch
@@ -216,9 +217,33 @@ def test_refresh_runs_in_its_span(instanced):
     mgr, scene, _ = instanced
     spans = spans_of(lambda: rt.refresh_instances(scene, mgr))
     assert spans[0][0] == "raycore.refresh"
-    assert [s[0] for s in spans[1:]] == ["raycore.wait.transforms",
-                                         "raycore.wait.corners"]
+    assert [s[0] for s in spans[1:]] == ["raycore.wait.transforms"]
     assert all(inside(s, spans[0]) for s in spans[1:])
+
+
+# Each query's and the refresh's host waits, in order: compactions, block
+# counts, the octant gate's readback, the transforms' upload. Constants
+# (safe_invdir's clamp, the interval test's infinity, the pairrow decode's
+# sentinel, the combine's dummy subgroup, the box-corner pattern) are made
+# on the device, so no wait uploads one.
+WAITS = {
+    "closest_hit_regrouped": ["octants", "worklist", "refine", "blocks"],
+    "any_hit_regrouped": ["octants", "worklist", "refine", "blocks"],
+    "closest_hit_dense_pallas_auto": ["worklist", "ranges"],
+    "closest_hit_instanced": ["worklist", "refine", "candidates", "blocks"],
+    "refresh": ["transforms"],
+}
+
+
+@pytest.mark.parametrize("route", sorted(WAITS))
+def test_no_wait_uploads_a_constant(dense, instanced, route):
+    if route == "refresh":
+        mgr, scene, _ = instanced
+        fn = lambda: rt.refresh_instances(scene, mgr)
+    else:
+        fn = lambda: run_query(route, dense, instanced)
+    waits = [s[0] for s in spans_of(fn) if s[0].startswith("raycore.wait.")]
+    assert waits == [f"raycore.wait.{w}" for w in WAITS[route]]
 
 
 def test_grid_counters_match_stage_one(monkeypatch, dense):

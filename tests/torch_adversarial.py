@@ -10,6 +10,7 @@ arrays.
 import numpy as np
 import torch
 
+from raycore_tpu_torch.accel.dense import INVD_COLS, ray_features
 from raycore_tpu_torch.core.triangle import INV_DIR_CLAMP
 from raycore_tpu_torch.ops import dense as ops_dense
 from raycore_tpu_torch.ops import regroup as ops_regroup
@@ -24,6 +25,14 @@ PHASE_A_K = 300
 PHASE_A_CASES = ("base", "zero_dirs", "clamped", "padded_boxes",
                  "empty_boxes", "tmin_gt_tmax") \
     + tuple(f"nonfinite_col{c}" for c in range(14))
+
+
+def stage1_rows(o, d, t_min, t_max):
+    """(o, invd, t_min, t_max) of flat rays as the query engines hand them to
+    ``bundle_stats`` and phase A: the -0 direction components turned into
+    +0, the inverse directions read from the ray features."""
+    d = torch.where(d == 0.0, 0.0, d)
+    return o, ray_features(o, d)[:, INVD_COLS], t_min, t_max
 
 
 def _boxes(rng, K):
@@ -57,7 +66,7 @@ def phase_a_case(case, seed=0):
     """(stats (PHASE_A_TILES, 16), bounds (6, PHASE_A_K)) of one case:
     - base: random stats and boxes;
     - zero_dirs: the stats of rays whose directions hold +-0 and tiny
-      components (phase_a_inputs clamps them), over boxes around them;
+      components (safe_invdir clamps them), over boxes around them;
     - clamped: inverse-direction bounds at exactly +-INV_DIR_CLAMP, so the
       parallel-bundle widening runs, against boxes that overlap the
       origins and boxes that do not;
@@ -82,9 +91,9 @@ def phase_a_case(case, seed=0):
         t_min = np.zeros(n * TILE, F32)
         t_max = np.full(n * TILE, np.inf, F32)
         stats, _ = ops_dense.phase_a_inputs(
-            torch.zeros(1, 3), torch.zeros(1, 3), torch.as_tensor(o),
-            torch.as_tensor(d), torch.as_tensor(t_min),
-            torch.as_tensor(t_max), n, TILE)
+            *stage1_rows(*(torch.as_tensor(a) for a in (o, d, t_min,
+                                                        t_max))),
+            torch.zeros(1, 3), torch.zeros(1, 3), TILE)
         st = stats.numpy()
     elif case == "clamped":
         st[::2, 9] = CL
@@ -162,15 +171,14 @@ def refine_operands(bmin, bmax, rays, tile, G, tile_major=False):
     cluster-major as the regrouped engine builds it or tile-major as the
     instanced engine does. Returns refine_pairs' arguments."""
     o, d, t_min, t_max, _, G, TILE = ops_regroup._padded_batch(rays, tile, G)
-    n_tiles = o.shape[0] // TILE
-    entry = ops_dense.phase_a_entry_bounds(bmin, bmax, o, d, t_min, t_max,
-                                           n_tiles, TILE)
+    rows = stage1_rows(o, d, t_min, t_max)
+    entry = ops_dense.phase_a_entry(*rows, bmin, bmax, TILE)
     if tile_major:
         tids, cids = ops_dense.build_worklist(entry)
     else:
         cids, tids = ops_dense.build_worklist(entry.T)
-    stats = ops_regroup.subgroup_stats(o, d, t_min, t_max, G)
-    return stats, tids, cids, bmin, bmax, TILE // G, n_tiles
+    stats = ops_dense.bundle_stats(*rows, G)
+    return stats, tids, cids, bmin, bmax, TILE // G, o.shape[0] // TILE
 
 
 # K6: a ray count that is not a whole number of the kernel's CTAs or
