@@ -10,7 +10,7 @@ count set to 0 just before it and read just after:
 
   1. environment: card name and power limit (nvidia-smi), torch, CUDA and
      nvcc versions; no CUDA device is an error (there is no CPU fallback);
-  2. build the kernels (K1-K7) from raycore_tpu_torch/csrc;
+  2. build the kernels (K1-K8) from raycore_tpu_torch/csrc;
   3. build the headline scene (displaced grid n=707, 999,698 triangles,
      C=256), cold and warm;
   4. kernel K1 (phase A) against its plain version and its model
@@ -170,8 +170,16 @@ count set to 0 just before it and read just after:
      its plain version and its model, then K7 the same; the refine's keep
      share; K7's time (a CUDA graph of 50 calls, and calls launched from
      the host back to back) beside its bound and its plain version's.
+ 29. kernel K8 (the instanced frame's affine arithmetic, ops/affine.py)
+     at the benchmark's refit frame (cardbench's dynamic-128.refit-1m,
+     set up by its harness): one frame (K1, K7 and K2 once, K8's refresh
+     once and its local rays twice); then on that frame's operands the
+     refresh (128 instances), stage 1's pair rows and the finalize's 1M
+     rays, each bitwise against its plain version, timed from a CUDA
+     graph of 50 calls and from calls launched from the host, beside its
+     bound (its bytes once) and its plain version's time.
 
-Every query path (phases 6, 8-14, 19-23 and 28) also holds the kernels it
+Every query path (phases 6, 8-14, 19-23, 28 and 29) also holds the kernels it
 launched against their plain versions on that path's own operands: K1
 bitwise on its phase-A inputs (and against its model), and its sweep
 kernel (K2-K6) on its own blocks or rays (K7 in phase 28). Every kernel
@@ -196,7 +204,8 @@ times: on the headline, on the blobby cell's multiwave path and on the
 256-instance frame in its pairrow mode; K1 and K2 once more on the
 path-traced frame, with one frame's launches and the sums of their
 times and bounds over its 8 queries; K7 twice, on the 1M primary and
-shadow queries; the probe P1 three times, its loop, onehot and take
+shadow queries; K8 three times, the refit frame's refresh, pair rows and
+finalize rays; the probe P1 three times, its loop, onehot and take
 kernels); the line
 before it the script's wall time; the last line is {"ok": true,
 "device": {...}}.
@@ -604,6 +613,7 @@ def main():
     import raycore_tpu_torch as rt
     from raycore_tpu_torch.accel import dispatch
     from raycore_tpu_torch.kernels import _build
+    from raycore_tpu_torch.ops import affine as ops_affine
     from raycore_tpu_torch.ops import brute as ops_brute
     from raycore_tpu_torch.ops import dense as ops_dense
     from raycore_tpu_torch.ops import regroup as ops_regroup
@@ -716,6 +726,8 @@ def main():
 
     counters = {"phase_a": ops_dense.phase_a,
                 "refine_pairs": ops_regroup.refine_pairs,
+                "instance_refresh": ops_affine.refresh_tables,
+                "local_rays": ops_affine.local_rays,
                 "regroup_sweep": ops_regroup.run_regrouped,
                 "worklist_sweep": ops_dense.run_worklist,
                 "occlusion_sweep": ops_dense.run_occlusion,
@@ -1020,6 +1032,9 @@ def main():
         ("1M shadow, two lights", two_light_shadow_rays(rt, shadow_1m),
          True)], read_counts, zero_counts)
 
+    # 29. K8 at the benchmark's refit frame's shapes.
+    k8 = affine_phase(29, dev, read_counts, zero_counts)
+
     kernels = [
         {"name": "phase_a", "route": "cuda",
          "source": "raycore_tpu_torch/csrc/phase_a.cu",
@@ -1098,6 +1113,13 @@ def main():
          "max_abs_err": 0.0, "ms": k["ms"], "host_ms": k["host_ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
          "bound_by": k["bound"][1], "library_ms": None} for k in k7
+    ] + [
+        {"name": "instance_affine", "route": "cuda",
+         "source": "raycore_tpu_torch/csrc/instance_affine.cu",
+         "replaces": None, "path": k["path"], "launches": k["launches"],
+         "max_abs_err": 0.0, "ms": k["ms"], "host_ms": k["host_ms"],
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+         "bound_by": k["bound"][1], "library_ms": None} for k in k8
     ] + [{"name": p["name"], "route": "cuda",
           "source": f"raycore_tpu_torch/csrc/{p['name']}.cu",
           "replaces": p["replaces"],
@@ -1800,11 +1822,14 @@ def instanced_phase(phase, rt, ops_dense, ops_regroup, dev, read_counts,
     res = rt.closest_hit(scene, rays)
     torch.cuda.synchronize()
     launches = read_counts("instanced closest_hit",
-                           ["phase_a", "refine_pairs", "regroup_sweep"])
+                           ["phase_a", "refine_pairs", "regroup_sweep",
+                            "local_rays"])
     if (launches["phase_a"], launches["refine_pairs"],
-            launches["regroup_sweep"]) != (1, 1, 1):
+            launches["regroup_sweep"], launches["local_rays"]) \
+            != (1, 1, 1, 2):
         raise AssertionError(f"instanced closest_hit: launches {launches}, "
-                             f"expected K1, K7 and K2 once each")
+                             f"expected K1, K7 and K2 once each and K8's "
+                             f"local rays twice")
     hit_frac = float(res.hit.float().mean())
     n_hit_inst = int(torch.unique(res.instance_idx).numel()) - 1
     if not 0.05 < hit_frac < 1.0 or n_hit_inst < N // 2:
@@ -3680,6 +3705,98 @@ def refine_phase(phase, rt, ops_dense, ops_regroup, scene, cases,
                     "bound": b})
         del got, args, stats, tids, cids, po, pd, ptmin, ptmax
     return out
+
+
+# The benchmark's instanced cell, whose frame K8 serves.
+AFFINE_CELL = "dynamic-128.refit-1m"
+
+
+def affine_phase(phase, dev, read_counts, zero_counts):
+    """K8 at AFFINE_CELL's shapes, its loop set up and warmed by the
+    benchmark's harness (seed SEED): one frame through the loop, which
+    must launch K1, K7 and K2 once, K8's refresh once and its local rays
+    twice and no other kernel; then, on the operands that frame builds,
+    the refresh (the next frame's transforms), pair mode (stage 1's
+    (subgroup, instance) pairs at tile 2048, G 32) and ray mode (the
+    frame's rays and winners' instances, -1 on a miss), each once and
+    bitwise against its plain version, its time from a CUDA graph of 50
+    calls and from calls launched from the host back to back, its plain
+    version's, and its bound: its bytes once at the HBM bandwidth (each
+    output written and each row's inputs read once). Returns one entry a
+    path for the kernels line."""
+    from pathlib import Path
+
+    from cardbench.core import harness
+    from cardbench.core.specs import Specs
+    from raycore_tpu_torch.ops import affine as ops_affine
+    from raycore_tpu_torch.ops import instanced as ops_inst
+    from raycore_tpu_torch.ops import regroup as ops_regroup
+    _, loop = harness.prepare(Specs([Path(__file__).resolve().parent]),
+                              AFFINE_CELL, SEED, dev)
+    zero_counts()
+    res = loop.call(0)
+    torch.cuda.synchronize()
+    want = ["phase_a", "refine_pairs", "regroup_sweep", "instance_refresh",
+            "local_rays"]
+    counts = read_counts(f"{AFFINE_CELL} frame", want)
+    if [counts[k] for k in want] != [1, 1, 1, 1, 2]:
+        raise AssertionError(f"{AFFINE_CELL} frame: launches {counts}, "
+                             f"expected K1, K7, K2 and K8's refresh once "
+                             f"and its local rays twice")
+    scene = loop.scene
+    tf = torch.as_tensor(loop.transforms[1], device=dev)
+    po, pd, ptmin, ptmax, R0, G, TILE = ops_regroup._padded_batch(
+        loop.rays, 2048, 32)
+    s1 = ops_inst._stage1_inst_core(scene, po, pd, ptmin, ptmax, TILE, G, 16)
+    Q, I = s1.qsub.shape[0], tf.shape[0]
+    inst = res.instance_idx.long()
+    cases = [
+        ("refresh", ops_affine.refresh_tables,
+         ops_affine.refresh_tables_plain,
+         (tf, scene.inst_local_min, scene.inst_local_max), "instance_refresh",
+         I * (48 + 24 + 48 + 24), f"{I} instances"),
+        ("stage 1 pair rows", ops_affine.local_rays,
+         ops_affine.local_rays_plain,
+         (scene.inst_inv, s1.qinst, po, pd, (s1.qsub, ptmin, ptmax, G)),
+         "local_rays", Q * G * (32 + 32) + Q * 8 + I * 48,
+         f"{Q} pairs x G {G} = {Q * G} rows"),
+        ("finalize rays", ops_affine.local_rays, ops_affine.local_rays_plain,
+         (scene.inst_inv, inst, po[:R0], pd[:R0]), "local_rays",
+         R0 * (24 + 8 + 24) + I * 48, f"{R0} rays"),
+    ]
+    out = []
+    for name, fn, plain, args, counter, n_bytes, rows in cases:
+        zero_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if read_counts(f"K8 {name}", [counter])[counter] != 1:
+            raise AssertionError(f"K8 {name}: not launched once")
+        for g, w in zip(got, plain(*args)):
+            diff = int((g.reshape(-1).view(torch.int32)
+                        != w.reshape(-1).view(torch.int32)).sum())
+            if diff or g.shape != w.shape:
+                raise AssertionError(f"K8 {name}: {diff} of {g.numel()} "
+                                     f"values differ from the plain version")
+        call = lambda: fn(*args)
+        ms = graph_ms(call, 5)
+        host_ms = cuda_ms(call, 5, inner=20)
+        plain_ms = cuda_ms(lambda: plain(*args), 5)
+        b = bound(n_bytes, 0)
+        say(phase, f"K8 instance_affine, {AFFINE_CELL} {name} ({rows}): "
+                   f"bitwise equal to plain; kernel {ms:.4f} ms on the card "
+                   f"({host_ms:.4f} ms a call launched from the host), plain "
+                   f"{plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        out.append({"path": f"{AFFINE_CELL} frame, {name}", "launches": 1,
+                    "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                    "bound": b})
+    say(phase, f"K8 launches a frame: {counts['instance_refresh']} refresh + "
+               f"{counts['local_rays']} local rays; sums: kernel "
+               f"{sum(k['ms'] for k in out):.4f} ms, plain "
+               f"{sum(k['plain_ms'] for k in out):.3f} ms, bound "
+               f"{sum(k['bound'][0] for k in out):.4f} ms")
+    loop.release()
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

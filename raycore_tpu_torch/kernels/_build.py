@@ -41,6 +41,9 @@ _SIGNATURES = {
     "raycore_phase_a": (_P, _P, _P, _I, _I, _F, _P),
     "raycore_empty_launch": (_I, _I, _I, _P),
     "raycore_refine_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "raycore_instance_refresh": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "raycore_local_rays": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _P),
     "raycore_regroup_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _F, _P),
     "raycore_worklist_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

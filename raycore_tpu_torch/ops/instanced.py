@@ -7,8 +7,8 @@
      K7), and the surviving (subgroup, instance) pairs are compacted
      (``ops/regroup.py:refine_worklist``, as in the dense engines).
   3. Per pair, the subgroup's rays go into the instance's local space
-     (o_l = R^-1 o + t, d_l = R^-1 d, then -0 -> +0) and become one row of
-     the ray-feature table. Möller–Trumbore's t does not change under the
+     (o_l = R^-1 o + t, d_l = R^-1 d, then -0 -> +0; kernel K8's pair
+     mode) and become one row of the ray-feature table. Möller–Trumbore's t does not change under the
      affine map, so keys compare across instances.
   4. Each pair expands over its BLAS's clusters (a local-space interval
      test) into (pair, cluster row) candidates, packed cluster-major into
@@ -17,7 +17,8 @@
      per-BLAS tables; its payload names the block row and lane, from
      which the instance is recovered.
   6. A grouped segment min per ray, then the exact scalar Möller–Trumbore
-     in the winning instance's local space.
+     in the winning instance's local space (the rays through K8's ray
+     mode).
 
 Every grid is sized from the data, with one host sync on each count. The
 JAX package's predict-then-validate capacities (``_CAP_CACHE``,
@@ -32,8 +33,10 @@ host sync (the compactions and the block count) in a
 
 The local rays' dots are fused multiply-add chains, as the JAX package's
 compiled stage 1 computes them, so the candidates equal its candidates;
-the ray features (``o_l x d_l``) and the finalize run in plain float32, as
-in the dense engines.
+on the card both local-ray steps (stage 1's pair rows and the finalize's
+rays) are one launch each of kernel K8 (``ops/affine.py:local_rays``).
+The ray features (``o_l x d_l``) and the finalize's test run in plain
+float32, as in the dense engines.
 """
 from __future__ import annotations
 
@@ -43,22 +46,14 @@ import torch
 
 from ..accel.brute import HitResult
 from ..accel.dense import exact_t_bary, gather_hit_payload
-from ..core.transforms import _apply_mat3_fused
 from ..core.triangle import safe_invdir
 from ..utils.config import span
+from .affine import local_rays
 from .dense import (_t_from_keys, build_worklist, bundle_stats,
                     interval_entry, phase_a_entry)
 from .regroup import (_padded_batch, combine_rows_grouped,
                       group_flat_cluster_major, ray_table, refine_worklist,
                       run_regrouped, table_invd)
-
-
-def _local_rays(inv, o, d):
-    """Rays (..., 3) into local space through inverses (..., 3, 4)
-    broadcast against them: o_l = R o + t, d_l = R d with the fused dots
-    of the JAX package's compiled code."""
-    R = inv[..., :3]
-    return _apply_mat3_fused(R, o) + inv[..., 3], _apply_mat3_fused(R, d)
 
 
 @dataclasses.dataclass
@@ -91,7 +86,6 @@ def _stage1_inst_core(scene, o, d, t_min, t_max, TILE: int, G: int,
     with span("raycore.stage1"):
         S = scene.max_clusters_per_blas
         dev = o.device
-        n_sub = o.shape[0] // G
 
         # 1) (tile, instance) culling (K1) on the instance AABBs, and 2)
         # the subgroup refine (K7) in world space, tile-major.
@@ -105,19 +99,14 @@ def _stage1_inst_core(scene, o, d, t_min, t_max, TILE: int, G: int,
         P, Q = tids.shape[0], qsub.shape[0]
 
         # 3) Local-space rays (-0 directions turned into +0) and their
-        # table, one subgroup of G a pair.
-        qs, qi = qsub.long(), qinst.long()
-        inv = scene.inst_inv[qi][:, None]                        # (Q, 1, 3, 4)
-        o_l, d_l = _local_rays(inv, o.reshape(n_sub, G, 3)[qs],
-                               d.reshape(n_sub, G, 3)[qs])
-        o_l = o_l.reshape(-1, 3)
-        d_l = torch.where(d_l == 0.0, 0.0, d_l).reshape(-1, 3)
-        tmin_l = t_min.reshape(n_sub, G)[qs].reshape(-1)
-        tmax_l = t_max.reshape(n_sub, G)[qs].reshape(-1)
+        # table, one subgroup of G a pair (K8 on the card).
+        o_l, d_l, tmin_l, tmax_l = local_rays(
+            scene.inst_inv, qinst, o, d, pairs=(qsub, t_min, t_max, G))
         tbl = ray_table(o_l, d_l, tmin_l, tmax_l, G)
 
         # 4) Cluster expansion in local space: S slots a pair, one per
         # cluster of its BLAS.
+        qi = qinst.long()
         ncl = scene.inst_ncl[qi]
         slots = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
         crow = scene.inst_cbase[qi][:, None] \
@@ -182,7 +171,7 @@ def _stage2_inst_core(scene, s1: InstancedStage1, o, d, G: int, SPB: int,
         t_approx = _t_from_keys(out_key[:R], 0)
         hit = (prim >= 0) & torch.isfinite(t_approx)
         tri, orig = gather_hit_payload(scene, prim.clamp_min(0), hit)
-        o_l, d_l = _local_rays(scene.inst_inv[inst.clamp_min(0)], o, d)
+        o_l, d_l = local_rays(scene.inst_inv, inst, o, d)
         t, bary = exact_t_bary(tri, hit, t_approx, o_l, d_l)
         return HitResult(hit=hit, triangle=tri, t=t, barycentric=bary,
                          prim_idx=orig.to(torch.int32),

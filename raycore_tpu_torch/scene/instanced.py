@@ -20,6 +20,7 @@ from ..accel.dense import build_dense
 from ..accel.tlas_build import transformed_aabbs
 from ..core.transforms import mat3x4_inverse
 from ..core.triangle import Triangle
+from ..ops.affine import refresh_tables
 from ..utils.config import span
 
 _PRIM_FIELDS = ("vertices", "normals", "tangents", "uv", "metadata")
@@ -136,8 +137,9 @@ def bake_instanced(mgr, cluster_size: int = 128,
 def refresh_instances(scene: DenseInstancedScene,
                       mgr) -> DenseInstancedScene:
     """Per-frame transform refresh: new inverses (fused, as the JAX
-    package's compiled refresh) and world AABBs only; geometry tables and
-    shapes stay. The instance set must be the one baked: a changed count,
+    package's compiled refresh) and world AABBs only, in one launch of
+    kernel K8 on the card (``ops/affine.py:refresh_tables``); geometry
+    tables and shapes stay. The instance set must be the one baked: a changed count,
     or a delete and push that changes which BLAS an instance slot
     references, raises ValueError (re-bake with ``bake_instanced``). Runs
     in a ``raycore.refresh`` span, the upload of the transforms (a host
@@ -153,9 +155,8 @@ def refresh_instances(scene: DenseInstancedScene,
                 "(delete+push cycle?); re-bake with bake_instanced")
         with span("raycore.wait.transforms"):
             tf = torch.as_tensor(transforms, device=scene.inst_inv.device)
-        wmin, wmax = transformed_aabbs(tf, scene.inst_local_min,
-                                       scene.inst_local_max)
+        inv, wmin, wmax = refresh_tables(tf, scene.inst_local_min,
+                                         scene.inst_local_max)
         return dataclasses.replace(
-            scene, inst_inv=mat3x4_inverse(tf, fused=True),
-            inst_aabb_min=wmin, inst_aabb_max=wmax,
+            scene, inst_inv=inv, inst_aabb_min=wmin, inst_aabb_max=wmax,
             root_aabb=torch.stack([wmin.amin(0), wmax.amax(0)]))

@@ -20,12 +20,15 @@ from raycore_tpu.scene.instanced import bake_instanced as j_bake
 from raycore_tpu.scene.instanced import refresh_instances as j_refresh
 from raycore_tpu_torch import convert
 from raycore_tpu_torch.accel import traversal as t_trav
+from raycore_tpu_torch.core.transforms import _apply_mat3_fused
+from raycore_tpu_torch.ops import affine as t_aff
 from raycore_tpu_torch.ops import instanced as t_inst
 from raycore_tpu_torch.ops import regroup as t_pr
 from torch_parity import (CPU, Twin, bits, check_hits, engine_rays,
                           instanced_twin, jax_instanced_arrays,
                           jax_scene_arrays, np_, random_transform,
                           sphere_of)
+from torch_adversarial import AFFINE_CASES, affine_case, affine_rays
 
 INT32_MAX = 0x7FFFFFFF
 _ARRAYS = ("tri_feats", "cluster_min", "cluster_max", "prims_hot",
@@ -345,3 +348,84 @@ def test_static_wrapper_and_capacity_hint(case12):
     assert cs is None
     for k in ("hit", "t", "prim_idx", "instance_idx"):
         assert torch.equal(getattr(res, k), getattr(ref, k)), k
+
+
+# K8's plain versions (ops/affine.py), which run on CPU tensors: the
+# expressions the refresh and the engine computed before the kernel.
+
+def _affine_inverses(case):
+    return t_aff.refresh_tables_plain(*(torch.as_tensor(a)
+                                        for a in affine_case(case)))[0]
+
+
+def _pair_operands(G, R=1024, Q=97, seed=2):
+    rng = np.random.default_rng(seed)
+    o, d = (torch.as_tensor(a) for a in affine_rays(R, seed))
+    sub = torch.as_tensor(rng.integers(0, R // G, Q), dtype=torch.int32)
+    t_min = torch.as_tensor(rng.uniform(0, 1, R).astype(np.float32))
+    t_max = torch.where(torch.arange(R) % 3 == 0, -np.inf, np.inf).float()
+    return o, d, sub, t_min, t_max, rng
+
+
+@pytest.mark.parametrize("case", AFFINE_CASES)
+@pytest.mark.parametrize("G", [8, 32])
+def test_local_rays_pair_mode_is_the_gather_expression(G, case):
+    """Pair mode equals, bit for bit, what stage 1 computed before K8:
+    the subgroups' rays and the pairs' inverses gathered, through the
+    fused dots, -0 directions turned into +0, t_min and t_max gathered."""
+    inv = _affine_inverses(case)
+    o, d, sub, t_min, t_max, rng = _pair_operands(G)
+    inst = torch.as_tensor(rng.integers(0, inv.shape[0], sub.shape[0]),
+                           dtype=torch.int32)
+    got = t_aff.local_rays(inv, inst, o, d, (sub, t_min, t_max, G))
+    n_sub, qs = o.shape[0] // G, sub.long()
+    m = inv[inst.long()][:, None]
+    R_, p, v = m[..., :3], o.reshape(n_sub, G, 3)[qs], \
+        d.reshape(n_sub, G, 3)[qs]
+    o_l = _apply_mat3_fused(R_, p) + m[..., 3]
+    d_l = _apply_mat3_fused(R_, v)
+    want = (o_l.reshape(-1, 3),
+            torch.where(d_l == 0.0, 0.0, d_l).reshape(-1, 3),
+            t_min.reshape(n_sub, G)[qs].reshape(-1),
+            t_max.reshape(n_sub, G)[qs].reshape(-1))
+    for g, w in zip(got, want):
+        assert np.array_equal(bits(g), bits(w))
+    assert not bool(((got[1] == 0) & torch.signbit(got[1])).any())
+
+
+def test_local_rays_ray_mode_keeps_negative_zero():
+    """Ray mode (the finalize's rays) keeps a -0 direction component, as
+    the finalize did before K8; pair mode on the same rays turns it into
+    +0; instance -1 reads instance 0."""
+    inv = _affine_inverses("cell_poses")
+    o, d, sub, t_min, t_max, _ = _pair_operands(8)
+    inst = torch.arange(o.shape[0]) % inv.shape[0] - 1
+    o_l, d_l = t_aff.local_rays(inv, inst, o, d)
+    neg = (d_l == 0) & torch.signbit(d_l)
+    assert int(neg.sum()) > 0
+    first = inst == -1
+    want = t_aff.local_rays(inv, torch.zeros_like(inst[first]), o[first],
+                            d[first])
+    assert np.array_equal(bits(o_l[first]), bits(want[0]))
+    assert np.array_equal(bits(d_l[first]), bits(want[1]))
+    every = torch.arange(o.shape[0] // 8, dtype=torch.int32)
+    _, d_p, _, _ = t_aff.local_rays(inv, torch.zeros_like(every), o, d,
+                                    (every, t_min, t_max, 8))
+    assert not bool(((d_p == 0) & torch.signbit(d_p)).any())
+
+
+def test_affine_counters_move_without_launching():
+    """On the CPU the wrappers count their rows and launch nothing: a
+    refresh and a query add rows (stage 1's pair rows and the finalize's
+    rays) and leave ``launches`` alone."""
+    tw, rng = instanced_twin(n_inst=6)
+    ts = rt.bake_instanced(tw.t, cluster_size=32)
+    _, tr = _rays(*engine_rays(rng, n=512))
+    launches = (t_aff.refresh_tables.launches, t_aff.local_rays.launches)
+    rows = t_aff.local_rays.rows
+    ts = rt.refresh_instances(ts, tw.t)
+    _, s1 = t_inst._query(ts, tr, **{"tile": 256, "subgroup": 8, "spb": 16})
+    G = 8
+    assert t_aff.local_rays.rows == rows + s1.qsub.shape[0] * G + 512
+    assert (t_aff.refresh_tables.launches,
+            t_aff.local_rays.launches) == launches

@@ -11,6 +11,7 @@ import torch
 
 import raycore_tpu_torch as rt
 from raycore_tpu_torch.kernels import _build
+from raycore_tpu_torch.ops import affine as ops_affine
 from raycore_tpu_torch.ops import brute as ops_brute
 from raycore_tpu_torch.ops import dense as ops_dense
 from raycore_tpu_torch.ops import regroup as ops_regroup
@@ -19,8 +20,9 @@ from raycore_tpu_torch.tools import gather_probe as t_gather
 from raycore_tpu_torch.tools import probe_block_overhead as t_block
 from raycore_tpu_torch.tools import probe_matmul_shapes as t_mm
 from raycore_tpu_torch.tools._common import best_ms, check_equal
-from torch_adversarial import (GATHER_CASES, PHASE_A_CASES, REFINE_PAIRS,
-                               REFINE_TILES, block_probe_case, brute_case,
+from torch_adversarial import (AFFINE_CASES, GATHER_CASES, PHASE_A_CASES,
+                               REFINE_PAIRS, REFINE_TILES, affine_case,
+                               affine_rays, block_probe_case, brute_case,
                                epilogue_probe_case, gather_case, morton_grid,
                                phase_a_case, phase_a_signed_zeros,
                                refine_case, refine_operands, stage1_rows)
@@ -676,6 +678,212 @@ def test_instanced_query_on_card_matches_cpu_and_traversal(cuda):
     torch.testing.assert_close(got.t.cpu()[h], trav.t.cpu()[h], rtol=2e-4,
                                atol=2e-4)
     assert torch.equal(rt.any_hit(scene, rays).hit, got.hit)
+
+
+# K8: the instanced frame's affine arithmetic (ops/affine.py).
+
+def _bits_equal(a, b):
+    """Equal shapes and bits (float32 compared as int32)."""
+    if a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return torch.equal(a, b)
+
+
+def _affine_tables(case, device):
+    return tuple(torch.as_tensor(a, device=device) for a in affine_case(case))
+
+
+@pytest.mark.parametrize("case", AFFINE_CASES)
+def test_refresh_tables_kernel_bitwise(cuda, case):
+    """K8's refresh once, bit for bit against its plain version on the
+    card (mat3x4_inverse(fused=True) and transformed_aabbs, whose fused
+    multiply-adds are core/triangle.py:fma's float64 emulation) and its
+    inverses against the plain version on the CPU: the benchmark cell's
+    poses, random scaled rotations with translations up to 1e6, |det|
+    about 1e-30, and signed permutations with +-0 and subnormal entries
+    under boxes with -0 and +0 faces, whose corners tie at zeros of both
+    signs (the min and max keep the zero PyTorch's amin and amax keep on
+    the card)."""
+    args = _affine_tables(case, cuda)
+    before = ops_affine.refresh_tables.launches
+    got = ops_affine.refresh_tables(*args)
+    assert ops_affine.refresh_tables.launches == before + 1
+    want = ops_affine.refresh_tables_plain(*args)
+    for g, w, name in zip(got, want, ("inst_inv", "aabb_min", "aabb_max")):
+        assert _bits_equal(g, w), name
+    inv_cpu = ops_affine.refresh_tables_plain(*(a.cpu() for a in args))[0]
+    assert _bits_equal(got[0].cpu(), inv_cpu)
+    if case == "signed_zeros":
+        for b in got[1:]:
+            z = b == 0
+            assert int((z & torch.signbit(b)).sum()) > 0
+            assert int((z & ~torch.signbit(b)).sum()) > 0
+
+
+@pytest.mark.parametrize("case", AFFINE_CASES)
+@pytest.mark.parametrize("mode", ["pairs8", "pairs32", "rays"])
+def test_local_rays_kernel_bitwise(cuda, mode, case):
+    """K8's local rays once, bit for bit against the plain version on the
+    card and on the CPU, through each case's inverses, on rays with +-0 and subnormal
+    direction components: pair mode at G 8 and 32 (random subgroups and
+    instances, a row count that is not a whole number of CTAs; -0 in d_l
+    becomes +0, t_min and t_max ride along), ray mode with instance -1
+    among the ids (it reads instance 0; d_l keeps -0, which the cell's
+    identity rotations leave on some rays)."""
+    inv = ops_affine.refresh_tables_plain(*_affine_tables(case, "cpu"))[0]
+    inv = inv.to(cuda)
+    I, R = inv.shape[0], 4096
+    rng = np.random.default_rng(3)
+    o, d = (torch.as_tensor(a, device=cuda) for a in affine_rays(R, 5))
+    if mode == "rays":
+        inst = torch.as_tensor(rng.integers(-1, I, R), device=cuda)
+        pairs, n = None, R
+    else:
+        G, Q = int(mode[5:]), 777
+        ids = lambda hi: torch.as_tensor(rng.integers(0, hi, Q),
+                                         dtype=torch.int32, device=cuda)
+        sub, inst = ids(R // G), ids(I)
+        t_min = torch.as_tensor(rng.uniform(0, 1, R).astype(np.float32),
+                                device=cuda)
+        t_max = torch.full((R,), float("inf"), device=cuda)
+        t_max[::3] = -float("inf")
+        pairs, n = (sub, t_min, t_max, G), Q * G
+    before = (ops_affine.local_rays.launches, ops_affine.local_rays.rows)
+    got = ops_affine.local_rays(inv, inst, o, d, pairs)
+    assert ops_affine.local_rays.launches == before[0] + 1
+    assert ops_affine.local_rays.rows == before[1] + n
+    want = ops_affine.local_rays_plain(inv, inst, o, d, pairs)
+    on_cpu = lambda a: a.cpu() if torch.is_tensor(a) else a
+    cpu = ops_affine.local_rays_plain(
+        inv.cpu(), inst.cpu(), o.cpu(), d.cpu(),
+        None if pairs is None else tuple(map(on_cpu, pairs)))
+    assert len(got) == len(want) == (2 if pairs is None else 4)
+    for g, w, c in zip(got, want, cpu):
+        assert _bits_equal(g, w)
+        assert _bits_equal(g.cpu(), c)
+    neg_zero = int(((got[1] == 0) & torch.signbit(got[1])).sum())
+    if pairs is not None:
+        assert neg_zero == 0
+    elif case == "cell_poses":
+        assert neg_zero > 0
+
+
+def test_affine_kernels_launch_nothing_on_empty_grids(cuda):
+    """No instance, no pair (Q = 0) and no ray (N = 0): empty results of
+    the right shapes and no launch."""
+    tf, lo, hi = _affine_tables("random", cuda)
+    o, d = (torch.as_tensor(a, device=cuda) for a in affine_rays(64, 1))
+    inv = ops_affine.refresh_tables_plain(tf, lo, hi)[0]
+    e32 = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    t = torch.zeros((64,), device=cuda)
+    before = (ops_affine.refresh_tables.launches,
+              ops_affine.local_rays.launches)
+    got = ops_affine.refresh_tables(tf[:0], lo[:0], hi[:0])
+    assert [tuple(g.shape) for g in got] == [(0, 3, 4), (0, 3), (0, 3)]
+    got = ops_affine.local_rays(inv, e32, o, d, (e32, t, t, 8))
+    assert [tuple(g.shape) for g in got] == [(0, 3), (0, 3), (0,), (0,)]
+    got = ops_affine.local_rays(inv, e32.long(), o[:0], d[:0])
+    assert [tuple(g.shape) for g in got] == [(0, 3), (0, 3)]
+    assert (ops_affine.refresh_tables.launches,
+            ops_affine.local_rays.launches) == before
+
+
+def test_instanced_frame_on_card_equals_cpu_bitwise(cuda, monkeypatch):
+    """A frame of _instanced_scene (every instance moved, refresh_instances,
+    closest_hit): on the card K8 once in the refresh and twice in the
+    query (stage 1's pair rows, the finalize's rays) and the fma
+    emulation never called. What K8 wrote (the refreshed tables, the
+    local rays) is bit for bit what the CPU run of the same frame
+    computed; hit, prim and instance are bit for bit the CPU's and t is
+    within the engine contract of it (the finalize's PyTorch arithmetic
+    on those same local rays rounds t and the barycentrics differently
+    on the two devices); hit, prim, instance, t and the barycentrics are
+    bit for bit the card's frame with K8's plain versions in its
+    place."""
+    from raycore_tpu_torch.core import triangle as core_tri
+    from raycore_tpu_torch.ops import instanced as ops_inst
+    from raycore_tpu_torch.scene import instanced as scene_inst
+    emulated, written = [], []
+    fma = core_tri.fma
+    monkeypatch.setattr(core_tri, "fma",
+                        lambda *a: emulated.append(1) or fma(*a))
+
+    def recording(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            written.extend(x.cpu() for x in out)
+            return out
+        return call
+
+    def frame(device, refresh, local):
+        """The frame's result, what the refresh and the local rays wrote,
+        and the fma emulation's calls in them."""
+        monkeypatch.setattr(scene_inst, "refresh_tables", recording(refresh))
+        monkeypatch.setattr(ops_inst, "local_rays", recording(local))
+        tlas, scene = _instanced_scene(device)
+        rng = np.random.default_rng(9)
+        for hid in list(tlas._handles):
+            rec = tlas._instances[tlas._handles[hid][0]]
+            m = rec.transform.copy()
+            m[:, 3] += rng.uniform(-0.2, 0.2, 3).astype(np.float32)
+            tlas.update_transform(rt.TLASHandle(hid), m)
+        rays = _instanced_rays(2048, 5, device)
+        calls = len(emulated)
+        del written[:]
+        res = rt.closest_hit(rt.refresh_instances(scene, tlas), rays)
+        return res, list(written), len(emulated) - calls
+
+    kernel = (ops_affine.refresh_tables, ops_affine.local_rays)
+    plain = (ops_affine.refresh_tables_plain, ops_affine.local_rays_plain)
+    ref, ref_written, _ = frame("cpu", *kernel)
+    before = (ops_affine.refresh_tables.launches,
+              ops_affine.local_rays.launches)
+    got, got_written, n_fma = frame(cuda, *kernel)
+    assert (ops_affine.refresh_tables.launches,
+            ops_affine.local_rays.launches) == (before[0] + 1, before[1] + 2)
+    assert n_fma == 0
+    assert len(got_written) == len(ref_written) == 3 + 4 + 2
+    for i, (g, r) in enumerate(zip(got_written, ref_written)):
+        assert _bits_equal(g, r), i
+    card_plain, _, n_fma = frame(cuda, *plain)
+    assert n_fma > 0 and int(ref.hit.sum()) > 50
+    for f in ("hit", "prim_idx", "instance_idx", "t", "barycentric"):
+        assert _bits_equal(getattr(got, f), getattr(card_plain, f)), f
+    for f in ("hit", "prim_idx", "instance_idx"):
+        assert _bits_equal(getattr(got, f).cpu(), getattr(ref, f)), f
+    torch.testing.assert_close(got.t.cpu(), ref.t, rtol=2e-5, atol=2e-6)
+
+
+def test_refresh_on_card_dispatches_few_operations(cuda, monkeypatch):
+    """refresh_instances on the card: at most 8 ATen operations that are
+    not views (the upload, one allocation, the root box's amin, amax and
+    stack), none of them on float64, and core/triangle.py:fma never
+    called."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from raycore_tpu_torch.core import triangle as core_tri
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                self.ops.append((str(func), getattr(out, "dtype", None)))
+            return out
+
+    tlas, scene = _instanced_scene(cuda)
+    rt.refresh_instances(scene, tlas)
+    monkeypatch.setattr(core_tri, "fma", None)
+    mode = Ops()
+    with mode:
+        rt.refresh_instances(scene, tlas)
+    assert 0 < len(mode.ops) <= 8, mode.ops
+    assert all(dt != torch.float64 for _, dt in mode.ops), mode.ops
 
 
 @pytest.mark.parametrize("SUB,spb_sub,packs,lane_chunk", [

@@ -352,3 +352,89 @@ def gather_case(case, seed=0):
     elif case == "tiny":
         tbl = (tbl * F32(2.0 ** -110)).astype(F32)
     return idx, tbl
+
+
+# K8 (the instanced frame's affine arithmetic): instance counts that are
+# not a whole number of the kernel's CTAs, and the cases of its transforms.
+AFFINE_INSTANCES = 300
+AFFINE_CASES = ("cell_poses", "random", "near_singular", "signed_zeros")
+TINY = F32(1e-40)       # a float32 subnormal
+
+
+def affine_case(case, seed=0):
+    """(transforms (I, 3, 4), local_min (I, 3), local_max (I, 3)) of one
+    ``AFFINE_CASES`` entry. "cell_poses": the benchmark's dynamic-128
+    poses (identity rotations at default_rng(0).uniform(-5, 5) centres,
+    shifted 0.1 in x a frame for 6 frames) around a 0.3-radius sphere's
+    box; "random": random rotations scaled 1e-3 to 1e3 a column,
+    translations up to +-1e6; "near_singular": 3x3s with |det| about
+    1e-30; "signed_zeros": signed permutations with +-0 and subnormal
+    entries, +-0 and subnormal translations, boxes with -0 and +0 faces,
+    so that the 8 corners tie at zeros of both signs."""
+    rng = np.random.default_rng(seed)
+    if case == "cell_poses":
+        centres = np.random.default_rng(0).uniform(-5, 5, (128, 3))
+        m = np.zeros((6, 128, 3, 4))
+        m[..., :3] = np.eye(3)
+        m[..., 3] = centres + 0.1 * np.arange(1, 7)[:, None, None] \
+            * np.array([1.0, 0.0, 0.0])
+        m = m.reshape(-1, 3, 4)
+        lo = np.full((m.shape[0], 3), -0.3)
+        return m.astype(F32), lo.astype(F32), (-lo).astype(F32)
+    I = AFFINE_INSTANCES
+    lo = rng.uniform(-2, 1, (I, 3))
+    hi = lo + rng.uniform(0, 2, (I, 3))
+    q, _ = np.linalg.qr(rng.normal(size=(I, 3, 3)))
+    m = np.zeros((I, 3, 4))
+    if case == "random":
+        m[..., :3] = q * 10.0 ** rng.uniform(-3, 3, (I, 1, 3))
+        m[..., 3] = rng.uniform(-1e6, 1e6, (I, 3))
+    elif case == "near_singular":
+        # A rotation with one column scaled to 1e-30, or every entry
+        # 1e-10: |det| = 1e-30 either way.
+        s = np.where(np.arange(3) == rng.integers(0, 3, (I, 1, 1)), 1e-30,
+                     1.0)
+        m[..., :3] = np.where(rng.uniform(size=(I, 1, 1)) < 0.5, q * s,
+                              np.eye(3) * 1e-10)
+        m[..., 3] = rng.uniform(-10, 10, (I, 3))
+    elif case == "signed_zeros":
+        perm = np.stack([rng.permutation(3) for _ in range(I)])
+        sign = rng.choice([-1.0, 1.0], (I, 3))
+        scale = rng.choice([1.0, 2.0, 0.5], (I, 3))
+        m[np.arange(I)[:, None], np.arange(3), perm] = sign * scale
+        m = m.astype(F32)
+        # The zero entries of R take either sign; one in five is a
+        # subnormal instead.
+        z = m[..., :3] == 0
+        m[..., :3] = np.where(z, rng.choice(
+            [F32(0.0), F32(-0.0), F32(0.0), F32(-0.0), TINY], (I, 3, 3)),
+            m[..., :3])
+        m[..., 3] = rng.choice([F32(0.0), F32(-0.0), TINY, -TINY, F32(1.0)],
+                               (I, 3))
+        faces = np.array([0.0, -0.0, TINY, -1.0, 1.0], F32)
+        lo = faces[rng.integers(0, 4, (I, 3))]
+        hi = np.where(rng.uniform(size=(I, 3)) < 0.5, F32(0.0), F32(-0.0))
+        hi[:, 0] = np.where(lo[:, 0] == -1.0, F32(1.0), hi[:, 0])
+        return m.astype(F32), lo.astype(F32), hi.astype(F32)
+    else:
+        raise ValueError(f"unknown affine case {case!r}")
+    return m.astype(F32), lo.astype(F32), hi.astype(F32)
+
+
+def affine_rays(R, seed=0):
+    """(o, d) (R, 3) for the local rays: origins up to +-100, unit
+    directions, on every other ray one component +0, -0 or a subnormal
+    of either sign, and rays (-0, +0, -1) and (-0, -0.6, -0.8): under an
+    identity rotation the last keeps d_l's -0 in x."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-100, 100, (R, 3)).astype(F32)
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = d.astype(F32)
+    special = np.array([0.0, -0.0, TINY, -TINY], F32)
+    rows = np.arange(0, R, 2)
+    d[rows, rng.integers(0, 3, rows.size)] = special[rng.integers(
+        0, 4, rows.size)]
+    d[1::6] = np.array([-0.0, 0.0, -1.0], F32)
+    d[3::6] = np.array([-0.0, -0.6, -0.8], F32)
+    return o, d
