@@ -340,16 +340,16 @@ INSTANCED_TRAVERSAL_STRIDE = 16
 INSTANCED_T_TOL = 2e-4
 INSTANCED_EDGE = 1e-4
 INSTANCED_EDGE_RATE = 1e-3
-# The path-traced production frame (phase 21):
-# tools/tpu_pathtracer_bench.py at its defaults (BASELINE config #5): the
-# heightfield displaced_grid_mesh(PT_MESH) with material (i // 64) % 2,
-# C=256, a PT_SIDE^2 frame of PT_BOUNCES bounces (8 queries of PT_SIDE^2
-# rays), timed over PT_SEEDS after one warm-up frame; PT_BATCHES frames
-# in one batch; the bounce (0-based) whose closest query is sampled
-# against the oracle, PT_ORACLE rays of it.
+# The path-traced production frame (phase 21): the benchmark's
+# configuration PT_CONFIG (BASELINE config #5; its materials, lights,
+# camera and render settings) on the heightfield
+# displaced_grid_mesh(PT_MESH), at a PT_SIDE^2 frame (8 queries of
+# PT_SIDE^2 rays at its 4 bounces), timed over PT_SEEDS after one warm-up
+# frame; PT_BATCHES frames in one batch; the bounce (0-based) whose
+# closest query is sampled against the oracle, PT_ORACLE rays of it.
+PT_CONFIG = "cardbench/configs/heightfield-1m-pt.json"
 PT_MESH = 707
 PT_SIDE = 1024
-PT_BOUNCES = 4
 PT_SEEDS = (0, 1, 2)
 PT_BATCHES = (2, 4)
 PT_ORACLE_BOUNCE = 2
@@ -2639,30 +2639,36 @@ def frame_kernels(phase, rt, ops_dense, ops_regroup, scene, queries):
 
 
 def pathtracer_frame_setup(rt, dev):
-    """tools/tpu_pathtracer_bench.py at its defaults: the heightfield with
-    two materials in a checker of 64-triangle runs, C=256, the tool's two
-    materials, two lights and camera, and the 1024^2 4-bounce config."""
+    """The benchmark configuration PT_CONFIG's frame at PT_SIDE^2: the
+    heightfield with its materials in runs of triangles, its cluster
+    size, two lights, camera and render settings."""
     import dataclasses
+    from pathlib import Path
     from raycore_tpu_torch.render import pathtracer as tp
-    mesh = rt.displaced_grid_mesh(n=PT_MESH, extent=2.0, amplitude=0.35,
+    cfg = json.loads((Path(__file__).resolve().parent / PT_CONFIG)
+                     .read_text())
+    m, li, c, r = (cfg["materials"], cfg["lights"], cfg["camera"],
+                   cfg["render"])
+    hf = cfg["scene"]["params"]
+    mesh = rt.displaced_grid_mesh(n=PT_MESH, extent=hf["extent"],
+                                  amplitude=hf["amplitude"], seed=hf["seed"],
                                   device=dev)
     n = mesh.vertices.shape[0]
     mesh = dataclasses.replace(mesh, metadata=(torch.arange(
-        n, device=dev) // 64) % 2)
-    scene = rt.build_dense(mesh, cluster_size=256)
-    mats = rt.Materials.create(
-        base_color=np.array([[0.75, 0.72, 0.68], [0.9, 0.85, 0.8]],
-                            np.float32),
-        metallic=np.array([0.0, 0.85], np.float32),
-        roughness=np.array([0.8, 0.15], np.float32), device=dev)
-    lights = rt.PointLights.create(
-        position=[[2.5, -2.5, 4.0], [-2.0, 2.0, 3.5]],
-        intensity=[[18.0, 17.0, 16.0], [6.0, 7.0, 9.0]], device=dev)
-    cam = rt.Camera.create(position=(0.0, -3.2, 2.4), target=(0.0, 0.0, 0.3),
-                           up=(0, 0, 1), fov_deg=55.0, device=dev)
-    cfg = tp.PTConfig(width=PT_SIDE, height=PT_SIDE, spp=1,
-                      bounces=PT_BOUNCES, tile_size=2048)
-    return scene, mats, lights, cam, cfg
+        n, device=dev) // m["run"]) % len(m["base_color"]))
+    scene = rt.build_dense(mesh, cluster_size=cfg["build"]["cluster_size"])
+    mats = rt.Materials.create(base_color=m["base_color"],
+                               metallic=m["metallic"],
+                               roughness=m["roughness"], device=dev)
+    lights = rt.PointLights.create(position=li["position"],
+                                   intensity=li["intensity"], device=dev)
+    cam = rt.Camera.create(position=c["position"], target=c["target"],
+                           up=c["up"], fov_deg=c["fov_deg"], device=dev)
+    pt = tp.PTConfig(width=PT_SIDE, height=PT_SIDE, spp=r["spp"],
+                     bounces=r["bounces"], tile_size=r["tile_size"],
+                     eps=r["eps"], background=tuple(r["background"]),
+                     compact=r["compact"])
+    return scene, mats, lights, cam, pt
 
 
 def pathtracer_phase(phase, rt, ops_dense, ops_regroup, dispatch, dev,

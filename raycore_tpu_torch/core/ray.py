@@ -42,7 +42,12 @@ class Ray:
         d = d.expand(batch + (3,))
 
         def as_scalar(x):
-            x = torch.as_tensor(x, dtype=torch.float32, device=device)
+            if isinstance(x, (int, float)):
+                # Filled on the device: uploading a number from the host
+                # would wait there for the work already queued.
+                x = torch.full((), x, dtype=torch.float32, device=device)
+            else:
+                x = torch.as_tensor(x, dtype=torch.float32, device=device)
             return x.expand(batch)
 
         return cls(o=o, d=d, t_min=as_scalar(t_min), t_max=as_scalar(t_max),

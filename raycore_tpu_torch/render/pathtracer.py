@@ -19,6 +19,21 @@ the scene's device). The primary rays' jitter comes from
 ``wavefront._pixel_jitter``, each bounce's draws from ``_bounce_draws``,
 indexed by original path id and then permuted by the accumulated
 compaction order, so compaction never changes a path's randoms.
+
+Tracing (``utils/config.py:span``, entered only while a profiler
+records): a frame runs in ``raycore.render``; inside it
+``raycore.render.primary`` (camera rays and the paths' state), then per
+bounce ``.draws``, the closest query (``raycore.closest_hit``), ``.nee``
+(the surface frame and the shadow rays), the occlusion query
+(``raycore.any_hit``), ``.shade`` (next-event shading and the BRDF
+sample) and, but on the last bounce, ``.compact`` (the sort key, its
+stable argsort and the gathers); last ``.image`` (the un-permute, the
+sample mean and the clamp). The glue adds no host sync to its queries'.
+Counters on ``_frames``, over every frame of the process: ``frames``,
+``queries`` and ``rays`` (the rays submitted to the queries) as host
+ints, and ``live``, the live lanes submitted to the closest queries,
+summed on the device without a host sync (a tensor once a frame ran);
+a caller reads it after the fact.
 """
 from __future__ import annotations
 
@@ -33,6 +48,7 @@ from ..collections.multitypeset import TexturePool, sample_nearest
 from ..core.ray import Ray
 from ..core.sampling import cosine_sample_hemisphere, reflect
 from ..core.triangle import bary_interp
+from ..utils.config import span
 from .wavefront import (Camera, Materials, PointLights, _background,
                         _generator, _query, _scene_device, _unit_normal,
                         generate_primary_rays)
@@ -117,82 +133,111 @@ def _pt_shade_and_sample(hit, res_hit, p, n, base, mi, wi, dist, occ_hit,
                          compact: bool = True):
     """Next-event shading, BRDF sampling and the coherence-sorting
     compaction (skipped with ``compact=False``)."""
-    radiance = radiance + torch.where((alive & ~res_hit)[:, None],
-                                      throughput * bg, 0.0)
-    metal = materials.metallic[mi]
-    rough = materials.roughness[mi]
-    lint = lights.intensity[u_l]
-    ndotl = torch.clamp((n * wi).sum(-1), min=0.0)
-    f_d = base / math.pi * (1.0 - metal)[:, None]
-    contrib = f_d * lint * (ndotl * (~occ_hit) * float(n_lights)
-                            / torch.clamp(dist ** 2, min=1e-12))[:, None]
-    radiance = radiance + torch.where(hit[:, None], throughput * contrib,
-                                      0.0)
-    if last:
-        return o, d, throughput, radiance, alive, order_acc
+    with span("raycore.render.shade"):
+        radiance = radiance + torch.where((alive & ~res_hit)[:, None],
+                                          throughput * bg, 0.0)
+        metal = materials.metallic[mi]
+        rough = materials.roughness[mi]
+        lint = lights.intensity[u_l]
+        ndotl = torch.clamp((n * wi).sum(-1), min=0.0)
+        f_d = base / math.pi * (1.0 - metal)[:, None]
+        contrib = f_d * lint * (ndotl * (~occ_hit) * float(n_lights)
+                                / torch.clamp(dist ** 2, min=1e-12))[:, None]
+        radiance = radiance + torch.where(hit[:, None], throughput * contrib,
+                                          0.0)
+        if last:
+            return o, d, throughput, radiance, alive, order_acc
 
-    # BRDF sample: mirror with probability metallic, else cosine diffuse.
-    pick_spec = u_b[:, 0] < metal
-    t1, t2 = _shading_basis(n)
-    local = cosine_sample_hemisphere(u_b[:, 1:3])
-    d_diff = t1 * local[:, 0:1] + t2 * local[:, 1:2] + n * local[:, 2:3]
-    d_spec = reflect(-d, n) + u_r * rough[:, None] * 0.25
-    d_spec = d_spec / torch.clamp(torch.linalg.norm(d_spec, dim=-1,
-                                                    keepdim=True), min=1e-12)
-    d = torch.where(pick_spec[:, None], d_spec, d_diff)
-    throughput = throughput * base
-    o = p + n * eps
-    alive = hit
-    if not compact:
-        return o, d, throughput, radiance, alive, order_acc
-    order = torch.argsort(_sort_key(o, d, alive, root_aabb), stable=True)
-    return (o[order], d[order], throughput[order], radiance[order],
-            alive[order], order_acc[order])
+        # BRDF sample: mirror with probability metallic, else cosine
+        # diffuse.
+        pick_spec = u_b[:, 0] < metal
+        t1, t2 = _shading_basis(n)
+        local = cosine_sample_hemisphere(u_b[:, 1:3])
+        d_diff = t1 * local[:, 0:1] + t2 * local[:, 1:2] + n * local[:, 2:3]
+        d_spec = reflect(-d, n) + u_r * rough[:, None] * 0.25
+        d_spec = d_spec / torch.clamp(torch.linalg.norm(
+            d_spec, dim=-1, keepdim=True), min=1e-12)
+        d = torch.where(pick_spec[:, None], d_spec, d_diff)
+        throughput = throughput * base
+        o = p + n * eps
+        alive = hit
+        if not compact:
+            return o, d, throughput, radiance, alive, order_acc
+    with span("raycore.render.compact"):
+        order = torch.argsort(_sort_key(o, d, alive, root_aabb), stable=True)
+        return (o[order], d[order], throughput[order], radiance[order],
+                alive[order], order_acc[order])
+
+
+def _image(radiance, order_acc, F: int, H: int, W: int, spp: int):
+    """The paths' radiance back in path order (the inverse of the
+    accumulated compaction order), each pixel's sample mean, clamped to
+    [0, 1] -> (F, H, W, 3)."""
+    radiance = radiance[torch.argsort(order_acc, stable=True)]
+    img = radiance.reshape(F, H, W, spp, 3).mean(dim=3)
+    return torch.clamp(img, 0.0, 1.0)
 
 
 def _frames(scene, materials, lights, cam, gens, cfg, pool, tex_refs,
             compact: bool):
     """F = len(gens) frames riding every query as one F*R-ray batch ->
-    (F, H, W, 3) images."""
+    (F, H, W, 3) images. Counts ``_frames.frames``, ``.queries``, ``.rays``
+    and ``.live`` (module docstring)."""
     H, W, spp, B = cfg.height, cfg.width, cfg.spp, cfg.bounces
     R = H * W * spp
     dev = _scene_device(scene)
-    gens = [_generator(g, dev) for g in gens]
-    RT = len(gens) * R
-    bg = _background(cfg.background, dev)
-    n_lights = lights.position.shape[0]
+    with span("raycore.render"):
+        gens = [_generator(g, dev) for g in gens]
+        RT = len(gens) * R
+        n_lights = lights.position.shape[0]
+        with span("raycore.render.primary"):
+            bg = _background(cfg.background, dev)
+            prim = [generate_primary_rays(cam, W, H, spp, g) for g in gens]
+            o = torch.cat([r.o for r in prim])
+            d = torch.cat([r.d for r in prim])
+            throughput = torch.ones((RT, 3), device=dev)
+            radiance = torch.zeros((RT, 3), device=dev)
+            alive = torch.ones((RT,), dtype=torch.bool, device=dev)
+            order_acc = torch.arange(RT, device=dev)
 
-    prim = [generate_primary_rays(cam, W, H, spp, g) for g in gens]
-    o = torch.cat([r.o for r in prim])
-    d = torch.cat([r.d for r in prim])
-    throughput = torch.ones((RT, 3), device=dev)
-    radiance = torch.zeros((RT, 3), device=dev)
-    alive = torch.ones((RT,), dtype=torch.bool, device=dev)
-    order_acc = torch.arange(RT, device=dev)
+        for bounce in range(B):
+            with span("raycore.render.draws"):
+                draws = [_bounce_draws(g, R, n_lights, dev) for g in gens]
+                # Each path's draws by its ORIGINAL id (frame-major), then
+                # the accumulated compaction permutation.
+                u_l, u_b, u_r = (torch.cat(list(col))[order_acc]
+                                 for col in zip(*draws))
+            _frames.live = _frames.live + alive.sum()
+            _frames.queries += 2
+            _frames.rays += 2 * RT
+            res = _query(_disp.scene_closest_hit, scene, Ray.create(
+                o, d, t_max=torch.where(alive, torch.inf, -1.0)), cfg)
+            with span("raycore.render.nee"):
+                hit, p, n, base, mi, wi, dist, so, st = _pt_prep_nee(
+                    res.hit, res.barycentric, res.triangle.vertices,
+                    res.triangle.normals, res.triangle.uv,
+                    res.triangle.metadata, d, alive, materials, lights, u_l,
+                    cfg.eps, pool, tex_refs)
+                shadow = Ray.create(so, wi, t_max=st)
+            occ = _query(_disp.scene_any_hit, scene, shadow, cfg)
+            o, d, throughput, radiance, alive, order_acc = \
+                _pt_shade_and_sample(
+                    hit, res.hit, p, n, base, mi, wi, dist, occ.hit, o, d,
+                    throughput, radiance, alive, order_acc, materials,
+                    lights, u_l, u_b, u_r, scene.root_aabb, bg, cfg.eps,
+                    n_lights=n_lights, last=(bounce == B - 1),
+                    compact=compact)
 
-    for bounce in range(B):
-        draws = [_bounce_draws(g, R, n_lights, dev) for g in gens]
-        # Each path's draws by its ORIGINAL id (frame-major), then the
-        # accumulated compaction permutation.
-        u_l, u_b, u_r = (torch.cat(list(col))[order_acc]
-                         for col in zip(*draws))
-        res = _query(_disp.scene_closest_hit, scene, Ray.create(
-            o, d, t_max=torch.where(alive, torch.inf, -1.0)), cfg)
-        hit, p, n, base, mi, wi, dist, so, st = _pt_prep_nee(
-            res.hit, res.barycentric, res.triangle.vertices,
-            res.triangle.normals, res.triangle.uv, res.triangle.metadata,
-            d, alive, materials, lights, u_l, cfg.eps, pool, tex_refs)
-        occ = _query(_disp.scene_any_hit, scene,
-                     Ray.create(so, wi, t_max=st), cfg)
-        o, d, throughput, radiance, alive, order_acc = _pt_shade_and_sample(
-            hit, res.hit, p, n, base, mi, wi, dist, occ.hit, o, d,
-            throughput, radiance, alive, order_acc, materials, lights, u_l,
-            u_b, u_r, scene.root_aabb, bg, cfg.eps, n_lights=n_lights,
-            last=(bounce == B - 1), compact=compact)
+        with span("raycore.render.image"):
+            img = _image(radiance, order_acc, len(gens), H, W, spp)
+        _frames.frames += len(gens)
+    return img
 
-    radiance = radiance[torch.argsort(order_acc, stable=True)]
-    img = radiance.reshape(len(gens), H, W, spp, 3).mean(dim=3)
-    return torch.clamp(img, 0.0, 1.0)
+
+_frames.frames = 0
+_frames.queries = 0
+_frames.rays = 0
+_frames.live = 0
 
 
 def trace_paths(scene, materials: Materials, lights: PointLights,

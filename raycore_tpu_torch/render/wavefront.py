@@ -200,7 +200,9 @@ def _unit_normal(n):
 
 
 def _background(bg, device):
-    return torch.tensor(bg, dtype=torch.float32, device=device)
+    """The background colour (3,) float32, filled on ``device``: an
+    upload from the host would wait there for the work already queued."""
+    return torch.stack([torch.full((), float(c), device=device) for c in bg])
 
 
 def _shadow_setup_core(rays, res, materials, lights, cfg: RenderConfig):

@@ -10,7 +10,11 @@ and the way back in one between the combine and the finalize; the block
 grid's ``slots`` and ``filled`` counters equal stage 1's block and pair
 counts, the refine's ``tested`` and ``kept`` its entries and the pairs it
 keeps; each query's and the refresh's waits are the syncs that read data
-or upload the transforms, none the upload of a constant."""
+or upload the transforms, none the upload of a constant. A path-traced
+frame (``render/pathtracer.py``) runs in ``raycore.render``: its
+primary, draws, nee, shade, compact and image stages in order around
+its queries, no wait beyond its queries' own, no number uploaded from
+the host in its glue, and its counters count what it submits."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +24,7 @@ from raycore_tpu_torch.accel import dispatch
 from raycore_tpu_torch.ops import dense as t_dense
 from raycore_tpu_torch.ops import instanced as t_inst
 from raycore_tpu_torch.ops import regroup as t_pr
+from raycore_tpu_torch.render import pathtracer as t_pt
 from raycore_tpu_torch.utils import config
 
 CPU = torch.device("cpu")
@@ -296,3 +301,140 @@ def test_refine_counters_match_the_instanced_pairs(monkeypatch, instanced):
     assert 0 < pairs <= coarse * (256 // 32)
     assert REFINE_PAIRS.tested == coarse * (256 // 32)
     assert REFINE_PAIRS.kept == pairs
+
+
+@pytest.fixture(scope="module")
+def frame_inputs():
+    """A 16 x 12, 4-bounce frame's materials (a checker of 64-triangle
+    runs over a matte and a metal), two lights and camera; the scene is
+    the dense fixture's."""
+    mats = rt.Materials.create(
+        base_color=[[0.75, 0.72, 0.68], [0.9, 0.85, 0.8]],
+        metallic=[0.0, 0.85], roughness=[0.8, 0.15], device=CPU)
+    lights = rt.PointLights.create(
+        position=[[2.5, -2.5, 4.0], [-2.0, 2.0, 3.5]],
+        intensity=[[18.0, 17.0, 16.0], [6.0, 7.0, 9.0]], device=CPU)
+    cam = rt.Camera.create(position=(0.0, -3.2, 2.4), target=(0.0, 0.0, 0.3),
+                           fov_deg=55.0, device=CPU)
+    cfg = t_pt.PTConfig(width=16, height=12, bounces=4, tile_size=256)
+    return mats, lights, cam, cfg
+
+
+def render(dense, frame_inputs, seed=7):
+    mats, lights, cam, cfg = frame_inputs
+    return t_pt.trace_paths_staged(dense[0], mats, lights, cam,
+                                   torch.Generator().manual_seed(seed), cfg)
+
+
+def recording(monkeypatch, into):
+    """Keep (entry, rays) of every query through dispatch in ``into``."""
+    for name in ("scene_closest_hit", "scene_any_hit"):
+        def keep(scene, rays, *a, _fn=getattr(dispatch, name), _n=name,
+                 **kw):
+            into.append((_fn, rays))
+            return _fn(scene, rays, *a, **kw)
+        monkeypatch.setattr(dispatch, name, keep)
+
+
+ROOTS = ("raycore.closest_hit", "raycore.any_hit")
+
+
+def frame_stages(bounces):
+    names = ["primary"]
+    for b in range(bounces):
+        names += ["draws", "nee", "shade"] + (["compact"]
+                                              if b < bounces - 1 else [])
+    return [f"raycore.render.{n}" for n in names + ["image"]]
+
+
+@pytest.mark.parametrize("route", ["worklist", "regrouped"])
+def test_a_frame_runs_its_stages_in_order_around_its_queries(
+        monkeypatch, dense, frame_inputs, route):
+    if route == "regrouped":
+        monkeypatch.setattr(dispatch, "REGROUP_MIN_RAYS", 64)
+    queries = []
+    recording(monkeypatch, queries)
+    spans = spans_of(lambda: render(dense, frame_inputs))
+    assert spans[0][0] == "raycore.render"
+    assert all(inside(s, spans[0]) for s in spans)
+    B = frame_inputs[3].bounces
+    stages = [s for s in spans if s[0].startswith("raycore.render.")]
+    assert [s[0] for s in stages] == frame_stages(B)
+    for a, b in zip(stages, stages[1:]):
+        assert a[2] <= b[1], (a, b)
+    # Each bounce: draws, its closest query, nee, its occlusion query,
+    # shade.
+    roots = [s for s in spans if s[0] in ROOTS]
+    assert [s[0] for s in roots] == list(ROOTS) * B
+    at = {n: [s for s in stages if s[0] == f"raycore.render.{n}"]
+          for n in ("draws", "nee", "shade")}
+    for b in range(B):
+        closest, occl = roots[2 * b], roots[2 * b + 1]
+        assert at["draws"][b][2] <= closest[1] and closest[2] \
+            <= at["nee"][b][1]
+        assert at["nee"][b][2] <= occl[1] and occl[2] <= at["shade"][b][1]
+    # No wait outside a query, and the frame's waits are its queries' own:
+    # the same queries run alone wait at the same sites.
+    waits = [s for s in spans if s[0].startswith("raycore.wait.")]
+    assert waits and all(any(inside(w, r) for r in roots) for w in waits)
+    monkeypatch.undo()
+    if route == "regrouped":
+        monkeypatch.setattr(dispatch, "REGROUP_MIN_RAYS", 64)
+    alone = []
+    for fn, rays in queries:
+        alone += [s[0] for s in spans_of(lambda: fn(dense[0], rays,
+                                                    tile_size=256))
+                  if s[0].startswith("raycore.wait.")]
+    assert [w[0] for w in waits] == alone
+
+
+def test_a_frame_enters_no_span_with_no_profiler(monkeypatch, dense,
+                                                 frame_inputs):
+    def refuse(name):
+        raise AssertionError(f"span {name} entered with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    img = render(dense, frame_inputs)
+    assert float(img.max()) > 0
+
+
+def test_a_frames_glue_uploads_no_number_from_the_host(monkeypatch, dense,
+                                                       frame_inputs):
+    """Outside its queries a frame makes every tensor on the device: an
+    upload of a host number (``torch.tensor`` or ``torch.as_tensor`` of
+    one) would wait on the card for the work queued before it."""
+    depth, uploads = [0], []
+    for name in ("scene_closest_hit", "scene_any_hit"):
+        def nested(*a, _fn=getattr(dispatch, name), **kw):
+            depth[0] += 1
+            try:
+                return _fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        monkeypatch.setattr(dispatch, name, nested)
+    for name in ("tensor", "as_tensor"):
+        def made(data, *a, _fn=getattr(torch, name), _n=name, **kw):
+            if depth[0] == 0 and not isinstance(data, torch.Tensor):
+                uploads.append((_n, data))
+            return _fn(data, *a, **kw)
+        monkeypatch.setattr(torch, name, made)
+    render(dense, frame_inputs)
+    assert uploads == []
+
+
+def test_a_frame_counts_what_it_submits(monkeypatch, dense, frame_inputs):
+    for name in ("frames", "queries", "rays", "live"):
+        monkeypatch.setattr(t_pt._frames, name, 0)
+    queries = []
+    recording(monkeypatch, queries)
+    render(dense, frame_inputs)
+    cfg = frame_inputs[3]
+    R = cfg.width * cfg.height * cfg.spp
+    assert t_pt._frames.frames == 1
+    assert t_pt._frames.queries == len(queries) == 2 * cfg.bounces
+    assert t_pt._frames.rays == sum(r.t_max.shape[0] for _, r in queries) \
+        == 2 * cfg.bounces * R
+    live = sum(int((r.t_max >= 0).sum()) for _, r in queries[0::2])
+    assert isinstance(t_pt._frames.live, torch.Tensor)
+    assert int(t_pt._frames.live) == live
+    assert R < live < cfg.bounces * R
