@@ -3663,7 +3663,7 @@ def refine_phase(phase, rt, ops_dense, ops_regroup, scene, cases,
         if occlusion:
             rays = rt.Ray.create(rays.o, rays.d, t_max=rays.t_max)
         po, pd, ptmin, ptmax, _, G, TILE, order = ops_regroup._swept_batch(
-            rays, 2048, 32)
+            rays, 2048, 32)[:8]
         _, _, ek, _, slow = phase_a_check(f"K1 {name}", ops_dense, scene,
                                           (po, pd, ptmin, ptmax), TILE)
         cids, tids = ops_dense.build_worklist(ek.T)

@@ -43,6 +43,16 @@ the cost of one count and its readback. Each ray's answer is the least
 clusters the conservative cull keeps, so it does not depend on the
 order.
 
+The same look, in the same readback, finds the dead lanes, which can
+accept no hit (t_max < t_min, or a NaN bound: a renderer's finished
+paths and their shadow rays). They are cut before phase A: the live
+lanes are swept alone, sorted by octant with the dead ones last where
+the gate engages or a dead lane comes before a live one, else as given
+(live lanes first, as a compacted batch has them), on tiles sized from
+the live count. A dead lane keeps the miss, the answer the sweep gave
+it; a live lane's answer is the same, since leaving dead rays out of a
+subgroup only narrows its bundle and drops clusters no live ray enters.
+
 The block grids are sized exactly from the data (a host sync on each
 compaction and one ``.item()`` on each block count); nothing is sized by
 a capacity guess. Only the compact stage 1 is ported; every payload
@@ -58,8 +68,9 @@ each host sync in a ``raycore.wait.<site>`` span.
 ``pack_presorted_cluster_major`` counts the grid's subgroup slots and the
 filled ones (``slots``, ``filled``), ``refine_pairs`` the (pair,
 subgroup) entries it refined and those its callers kept (``tested``,
-``kept``), ``octant_gate`` the queries it saw, those it ordered and the
-octant changes it found (``checked``, ``engaged``, ``boundaries``).
+``kept``), ``octant_gate`` the queries it saw, those it ordered, the
+octant changes between live lanes it found and the dead lanes it cut
+(``checked``, ``engaged``, ``boundaries``, ``dead``).
 """
 from __future__ import annotations
 
@@ -638,13 +649,13 @@ def merge_pass1(key, pair, k1, p1):
 
 def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
                  payload: str = "full", wave: WaveSweep | None = None,
-                 order=None):
+                 order=None, caller=None):
     """Sweep, grouped combine, the merge of the wave sweep's results
     (``wave``, passes >= 2) and finalize. ``o``/``d`` are the unpadded
-    rays as swept; ``R_pad`` is the padded ray count. ``order``: the
-    caller's index of each swept ray (``_swept_batch``), where given; the
-    winners and their rays go back to the caller's order before the
-    finalize."""
+    rays as swept; ``R_pad`` is the padded ray count. ``order`` and
+    ``caller``: ``_swept_batch``'s, where given; the winners go back to
+    the caller's lanes (``_in_caller_lanes``) and the finalize takes the
+    caller's rays."""
     R = o.shape[0]
     n_sub = R_pad // G
     with span("raycore.sweep"):
@@ -658,13 +669,26 @@ def _stage2_core(scene, block_cid, block_subs, tbl, o, d, G, SPB, R_pad,
             out_key, out_pair = merge_pass1(out_key, out_pair, wave.k1,
                                             wave.p1)
     key, pair = out_key[:R], out_pair[:R]
-    if order is not None:
-        with span("raycore.reorder"):
-            # Swept ray i is the caller's ray order[i].
-            back = lambda a: torch.empty_like(a).index_copy_(0, order[:R], a)
-            key, pair, o, d = (back(a) for a in (key, pair, o, d))
+    if caller is not None:
+        o, d = caller
+        if order is not None or R < o.shape[0]:
+            with span("raycore.reorder"):
+                key, pair = _in_caller_lanes(key, pair, order, o.shape[0])
     with span("raycore.finalize"):
         return _finalize(scene, key, pair, o, d, payload)
+
+
+def _in_caller_lanes(key, pair, order, R0: int):
+    """The swept rays' winners (key, pair) in the caller's R0 lanes: swept
+    ray i's in lane ``order[i]`` (lane i where ``order`` is None; the
+    padding's entries of ``order`` are not read), the miss (INT32_MAX,
+    -1) in every lane not swept."""
+    def back(a, miss):
+        if order is None:
+            return torch.cat([a, a.new_full((R0 - a.shape[0],), miss)])
+        return a.new_full((R0,), miss).index_copy_(0, order[:a.shape[0]],
+                                                   a)
+    return back(key, INT32_MAX), back(pair, -1)
 
 
 def _finalize(scene, key, pair, o, d, payload: str):
@@ -680,15 +704,23 @@ def _finalize(scene, key, pair, o, d, payload: str):
     return finalize_hits_exact(scene, pair, _t_from_keys(key, 0), o, d)
 
 
+def _tile_sizes(R: int, tile: int, subgroup: int):
+    """(G, TILE) for a sweep of R rays: subgroups of ``subgroup`` rays
+    (fewer, a power of two from 8, for a small batch) and tiles of
+    ``tile`` rays (fewer for a small batch), a whole number of
+    subgroups."""
+    G = min(subgroup, max(8, 1 << (max(R, 1) - 1).bit_length()))
+    TILE = min(tile, max(R, G))
+    return G, -(-TILE // G) * G
+
+
 def _padded_batch(rays, tile: int, subgroup: int):
     """Flatten a batch, turn -0 directions into +0 and pad it to whole
     tiles with rays that never hit (d = 1, t_max = -inf). Returns
     (o, d, t_min, t_max, R0, G, TILE)."""
     o, d, t_min, t_max = flat_rays(rays)
     R0 = o.shape[0]
-    G = min(subgroup, max(8, 1 << (max(R0, 1) - 1).bit_length()))
-    TILE = min(tile, max(R0, G))
-    TILE = -(-TILE // G) * G
+    G, TILE = _tile_sizes(R0, tile, subgroup)
     return (*pad_rays(o, d, t_min, t_max, TILE), R0, G, TILE)
 
 
@@ -705,42 +737,74 @@ def octant_keys(d):
                      alpha=4)
 
 
-def octant_gate(octant) -> bool:
-    """Whether the rays of a flat batch, with direction octants
-    ``octant`` (R,), change octant between neighbours more than
-    ``OCTANT_BOUNDARIES`` times, so that more than 7 of its tiles or
-    subgroups may mix octants. One host sync reads the count. Adds 1 to
-    the counter ``checked``, the changes found to ``boundaries`` and,
-    where it returns True, 1 to ``engaged``."""
+def live_lanes(t_min, t_max):
+    """The lanes that can accept a hit: t_max >= t_min. A lane with t_max
+    below t_min, or a NaN bound, is dead (the sweeps accept t in [t_min,
+    t_max])."""
+    return t_max >= t_min
+
+
+def octant_gate(octant, live):
+    """Whether the live lanes (``live`` (R,) bool) of a flat batch, with
+    direction octants ``octant`` (R,), must be reordered before the
+    sweep, and how many are live. They must where a dead lane comes
+    before a live one, or where neighbouring live lanes change octant
+    more than ``OCTANT_BOUNDARIES`` times, so that more than 7 of their
+    tiles or subgroups may mix octants. One host sync reads the three
+    counts. Returns (engaged, live lanes); adds 1 to the counter
+    ``checked``, the changes found to ``boundaries``, the dead lanes to
+    ``dead`` and, where it engages, 1 to ``engaged``."""
+    changes = (octant[1:] != octant[:-1]) & live[1:] & live[:-1]
+    rises = live[1:] & ~live[:-1]
     with span("raycore.wait.octants"):
-        n = int((octant[1:] != octant[:-1]).sum().item())
+        n, n_rises, n_live = torch.stack(
+            [changes.sum(), rises.sum(), live.sum()]).tolist()
     octant_gate.checked += 1
     octant_gate.boundaries += n
-    engaged = n > OCTANT_BOUNDARIES
+    octant_gate.dead += octant.shape[0] - n_live
+    engaged = n_rises > 0 or n > OCTANT_BOUNDARIES
     octant_gate.engaged += engaged
-    return engaged
+    return engaged, n_live
 
 
 octant_gate.checked = 0
 octant_gate.engaged = 0
 octant_gate.boundaries = 0
+octant_gate.dead = 0
 
 
 def _swept_batch(rays, tile: int, subgroup: int):
-    """The regrouped driver's operands: ``_padded_batch``'s, stably sorted
-    by direction octant where ``octant_gate`` engages, each octant in the
-    caller's order, else as given. Returns (o, d, t_min, t_max, R0, G,
-    TILE, order), ``order[i]`` the caller's index of swept ray i, or None
-    where the batch is swept as given. The padding (d = 1, the last
-    octant) stays last."""
+    """The regrouped driver's operands: the live lanes of
+    ``_padded_batch``'s rays (``live_lanes``), stably sorted by direction
+    octant where ``octant_gate`` engages, each octant in the caller's
+    order, else as given; where a lane is dead, padded anew to whole
+    tiles of a G and TILE chosen from the live count. Returns (o, d,
+    t_min, t_max, R, G, TILE, order, caller): R swept rays before the
+    padding, ``order[i]`` the caller's index of swept ray i, or None
+    where swept ray i is the caller's ray i; ``caller`` the caller's
+    (o, d) with -0 directions turned into +0, for the finalize. The
+    padding (d = 1, the last octant, dead) stays last."""
     o, d, t_min, t_max, R0, G, TILE = _padded_batch(rays, tile, subgroup)
+    caller = o[:R0], d[:R0]
     order = None
     with span("raycore.reorder"):
         octant = octant_keys(d)
-        if octant_gate(octant[:R0]):
+        live = live_lanes(t_min, t_max)
+        engaged, R = octant_gate(octant[:R0], live[:R0])
+        if R < R0:
+            # Dead lanes sort last (key 8) and are cut.
+            if engaged:
+                order = torch.sort(torch.where(live, octant, 8),
+                                   stable=True).indices[:R]
+                o, d, t_min, t_max = (a[order] for a in (o, d, t_min, t_max))
+            else:
+                o, d, t_min, t_max = (a[:R] for a in (o, d, t_min, t_max))
+            G, TILE = _tile_sizes(R, tile, subgroup)
+            o, d, t_min, t_max = pad_rays(o, d, t_min, t_max, TILE)
+        elif engaged:
             order = torch.sort(octant, stable=True).indices
             o, d, t_min, t_max = (a[order] for a in (o, d, t_min, t_max))
-    return o, d, t_min, t_max, R0, G, TILE, order
+    return o, d, t_min, t_max, R, G, TILE, order, caller
 
 
 def _closest_hit_regrouped_cm(scene, rays, *, tile: int, subgroup: int,
@@ -752,15 +816,26 @@ def _closest_hit_regrouped_cm(scene, rays, *, tile: int, subgroup: int,
     the caller's order before the finalize, restore the batch shape. Each
     ray's answer is the least (t key, prim) over the triangles that pass
     the exact test in the clusters the conservative cull keeps, so the
-    order changes which clusters are swept, never an answer."""
+    order changes which clusters are swept, never an answer. Dead lanes
+    (``live_lanes``) are not swept: each keeps the miss, the answer the
+    sweep gives it. Dropping them from a subgroup only narrows its
+    bundle, which drops clusters no live ray enters. Where every lane is
+    dead, nothing is launched."""
     batch = rays.batch_shape
-    o, d, t_min, t_max, R0, G, TILE, order = _swept_batch(rays, tile,
-                                                          subgroup)
-    block_cid, block_subs, tbl, *rest = _stage1_cm_core(
-        scene, o, d, t_min, t_max, TILE, G, spb, waves=passes - 1)
-    wave = rest[1] if passes > 1 else None
-    res = _stage2_core(scene, block_cid, block_subs, tbl, o[:R0], d[:R0],
-                       G, spb, o.shape[0], payload, wave, order)
+    o, d, t_min, t_max, R, G, TILE, order, caller = _swept_batch(
+        rays, tile, subgroup)
+    if R == 0:
+        key, pair = _in_caller_lanes(o.new_empty(0, dtype=torch.int32),
+                                     o.new_empty(0, dtype=torch.int32),
+                                     None, caller[0].shape[0])
+        with span("raycore.finalize"):
+            res = _finalize(scene, key, pair, *caller, payload)
+    else:
+        block_cid, block_subs, tbl, *rest = _stage1_cm_core(
+            scene, o, d, t_min, t_max, TILE, G, spb, waves=passes - 1)
+        wave = rest[1] if passes > 1 else None
+        res = _stage2_core(scene, block_cid, block_subs, tbl, o[:R], d[:R],
+                           G, spb, o.shape[0], payload, wave, order, caller)
     return res.map(lambda a: a.reshape(batch + tuple(a.shape[1:])))
 
 
@@ -810,7 +885,7 @@ def closest_hit_regrouped(scene, rays, *, tile: int = 512, subgroup: int = 32,
     times, so that its tiles or subgroups of ``subgroup`` rays may mix
     octants, is swept stably sorted by octant and answered in the
     caller's order (``_swept_batch``); the answers do not depend on the
-    order."""
+    order. Lanes with t_max < t_min are not swept and miss."""
     if scene.sub_chunks != 1:
         raise ValueError("regrouped engine requires sub_chunks=1 scenes")
     passes = resolve_passes(scene, passes)

@@ -248,7 +248,8 @@ def test_the_gate_engages_past_seven_octant_changes(counters):
     R = 16 * G + 5
     starts = [0] + [G * k + 3 for k in range(1, 8)]
     d = _eight_runs(starts, R)
-    gate = lambda d: t_pr.octant_gate(t_pr.octant_keys(d))
+    gate = lambda d: t_pr.octant_gate(
+        t_pr.octant_keys(d), torch.ones(d.shape[0], dtype=torch.bool))[0]
     assert np.array_equal(np_(t_pr.octant_keys(d)), octants(np_(d)))
     assert not gate(d)
     assert (GATE.checked, GATE.engaged, GATE.boundaries) == (1, 0, 7)
@@ -291,7 +292,7 @@ def test_the_swept_order_is_stable_and_its_inverse_exact(counters):
     rays = torch_rays(np_(o), np_(d), t_max=t_max)
     po, pd, ptmin, ptmax, R0, G_, TILE_ = t_pr._padded_batch(rays, 256, G)
     so, sd, stmin, stmax, R1, G1, TILE1, order = t_pr._swept_batch(
-        rays, 256, G)
+        rays, 256, G)[:8]
     assert GATE.engaged == 1
     assert (R1, G1, TILE1) == (R0, G_, TILE_) and so.shape == po.shape
     perm = np.argsort(octants(np_(d)), kind="stable")
